@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Smoke run of jpeg_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Builds the C++ entropy runtime and both CUDA kernels from this checkout,
+checks each kernel against its plain PyTorch version at the shapes the main
+path gives it, then drives the main path once: the hybrid host + device
+corpus decode of 64 images (62 of them 3840x2160 frames) through
+``BatchedCorpusDecoder(hybrid_device=True)``. It exits non-zero at the first
+failed check, without a result line, and when no CUDA device is present.
+
+Output: check lines, then the ``nvidia-smi`` name and power limit, one JSON
+line describing the kernels, and last a JSON result line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+FIXTURES = os.path.join(REPO, "tests", "goldens", "torch")
+FRAMES_4K = ["synth_3840x2160_s0_q85_rst1.jpg", "synth_3840x2160_s1_q85_rst1.jpg"]
+SMALL_RST = ["synth_512x384_s2_q85_rst1.jpg", "synth_512x384_s4_q85_rst1_gray.jpg"]
+SMALL_NO_RST = "synth_512x384_s3_q85_rst0.jpg"
+BATCH = 8        # frames per K1 / K3 check, and per device claim
+CORPUS_4K = 62   # 4K frames in the main-path corpus (plus two small images)
+K1_TOL = 1       # max |u8 diff| kernel vs plain (the repo's fused-tier bar)
+K1_FRAC = 0.05   # max share of differing pixels
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+    print(f"ok: {what}", flush=True)
+
+
+def read(name: str) -> bytes:
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def synthetic_image(width: int, height: int, seed: int) -> np.ndarray:
+    """The image tests/gen_torch_fixtures.py encoded (same formula as
+    jpeg_tpu.io.corpus.synthetic_image, which this script may not import)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    img = np.stack([
+        128 + 80 * np.sin(xx / 97.0 + seed) * np.cos(yy / 71.0),
+        128 + 80 * np.sin(xx / 53.0 + 1.0) * np.cos(yy / 113.0 + seed),
+        128 + 80 * np.sin(xx / 151.0 + 2.0) * np.cos(yy / 41.0),
+    ], axis=-1)
+    img += rng.normal(0, 6.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0**2 / mse)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median milliseconds of ``fn()`` on the current stream, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def corrupt_copies(plan, n: int, seed: int) -> list:
+    """``n`` copies of ``plan`` with seeded byte flips in the scan data."""
+    import copy
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        p = copy.copy(plan)
+        scan = plan.scan_data.copy()
+        pos = rng.choice(len(scan), size=3, replace=False)
+        scan[pos] ^= rng.integers(1, 256, size=3).astype(np.uint8)
+        p.scan_data = scan
+        out.append(p)
+    return out
+
+
+def run() -> list[dict]:
+    """All checks and the main path; returns the kernel records."""
+    import torch
+
+    from jpeg_tpu_torch import runtime
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.models.decoder import (
+        PipelineGeometry,
+        coefficient_planes_from_blocks,
+        decode_bytes,
+    )
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
+        f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. Builds, from this checkout's sources.
+    for name, load in (("C++ runtime (g++)", runtime.load),
+                       ("K1 fused_plane.cu (nvcc sm_90a)", k1.load_kernel),
+                       ("K3 huffman_lanes.cu (nvcc sm_90a)", k3.load_kernel)):
+        t0 = time.perf_counter()
+        load()
+        print(f"built {name} in {time.perf_counter() - t0:.3f} s", flush=True)
+
+    # 2. K1 against its plain version at each bucket shape of the main path:
+    #    the 4K bucket of CORPUS_4K frames and the two 512x384 images.
+    def k1_inputs(plans):
+        geom = PipelineGeometry.of(plans[0])
+        hp = [[p.copy() for p in runtime.native_decode_planes(pl)]
+              for pl in plans]
+        planes = [torch.from_numpy(np.stack([h[c] for h in hp])).to(dev)
+                  for c in range(len(hp[0]))]
+        qtabs = torch.from_numpy(np.stack(
+            [k1.plan_quant_patterns(pl, geom) for pl in plans])).to(dev)
+        return planes, qtabs, geom, hp
+
+    plans4k = [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(CORPUS_4K)]
+    k1_err = 0
+    for label, plans in (("512x384 no-restart", [parse_jpeg(read(SMALL_NO_RST))]),
+                         ("512x384 gray", [parse_jpeg(read(SMALL_RST[1]))]),
+                         (f"{CORPUS_4K}x4K", plans4k)):
+        planes, qtabs, geom, host_planes = k1_inputs(plans)
+        out_k = k1.fused_plane_decode(planes, qtabs, geom)
+        out_p = k1.fused_plane_decode_plain(planes, qtabs, geom)
+        diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
+        err, frac = int(diff.max()), float((diff > 0).float().mean())
+        k1_err = max(k1_err, err)
+        check(err <= K1_TOL and frac < K1_FRAC,
+              f"K1 vs plain, {label} bucket: max |diff| {err} <= {K1_TOL}, "
+              f"differing share {frac:.3e} < {K1_FRAC}")
+        del out_k, out_p, diff
+    k1_ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2)
+    k1_plain_ms = cuda_ms(lambda: k1.fused_plane_decode_plain(planes, qtabs, geom), 3, 1)
+    print(f"K1 {CORPUS_4K}x4K bucket: kernel {k1_ms:.3f} ms, plain "
+          f"{k1_plain_ms:.3f} ms (median, CUDA events)", flush=True)
+    # The same at one device claim's size (contiguous leading slices).
+    p8, q8 = [p[:BATCH] for p in planes], qtabs[:BATCH]
+    k1_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom), 10, 2)
+    k1_8_plain = cuda_ms(lambda: k1.fused_plane_decode_plain(p8, q8, geom), 3, 1)
+    print(f"K1 {BATCH}x4K: kernel {k1_8:.3f} ms, plain {k1_8_plain:.3f} ms "
+          "(median, CUDA events)", flush=True)
+    del planes, qtabs, p8, q8
+    plans4k, host_planes = plans4k[:BATCH], host_planes[:BATCH]
+
+    # 3. K3 against its plain version: small fixtures + corrupt copies.
+    for name in SMALL_RST:
+        base = parse_jpeg(read(name))
+        batch = k3.prepare_lane_batch([base] + corrupt_copies(base, 8, seed=7))
+        lanes = k3.lane_tensors(batch, dev)
+        n = len(batch.lane_start)
+        ck, ek = k3.decode_lanes(lanes, n, batch.total_rows)
+        cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
+        check(torch.equal(ek, ep),
+              f"K3 vs plain on {name} + 8 corrupt copies: err vectors equal "
+              f"({int(ek.sum())} of {n} lanes flagged)")
+        ok_rows = torch.zeros(batch.total_rows, dtype=torch.bool, device=dev)
+        for lane in range(n):
+            if not bool(ek[lane]):
+                r0 = int(batch.lane_out[lane])
+                ok_rows[r0 : r0 + int(batch.lane_nblk[lane])] = True
+        check(torch.equal(ck[ok_rows], cp[ok_rows]),
+              f"K3 vs plain on {name}: unflagged lanes bit-identical "
+              f"(all rows identical: {torch.equal(ck, cp)})")
+
+    # 4. K3 at the main path's shape: plain version, then the C++ decoder.
+    batch = k3.prepare_lane_batch(plans4k)
+    lanes = k3.lane_tensors(batch, dev)
+    n = len(batch.lane_start)
+    ck, ek = k3.decode_lanes(lanes, n, batch.total_rows)
+    k3_ms = cuda_ms(lambda: k3.decode_lanes(lanes, n, batch.total_rows), 5, 1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
+    end.record()
+    torch.cuda.synchronize()
+    k3_plain_ms = start.elapsed_time(end)
+    k3_err = int((ck.to(torch.int64) - cp.to(torch.int64)).abs().max())
+    check(not bool(ek.any()) and torch.equal(ek, ep) and k3_err == 0,
+          f"K3 vs plain on {BATCH} 4K frames ({n} lanes): no lane flagged, "
+          "coefficients bit-identical")
+    t0 = time.perf_counter()
+    for pl in plans4k:
+        runtime.native_decode_planes(pl)
+    cpp_ms = (time.perf_counter() - t0) * 1e3
+    for i, pl in enumerate(plans4k):
+        r0, rows = batch.images[i]
+        dev_planes = coefficient_planes_from_blocks(ck[r0 : r0 + rows], geom)
+        for c in range(3):
+            if not np.array_equal(dev_planes[c].cpu().numpy(), host_planes[i][c]):
+                raise CheckFailed(f"K3 planes of frame {i}, component {c} "
+                                  "differ from the C++ decoder")
+    check(True, f"K3 on {BATCH} 4K frames == C++ native_decode_planes, bit for bit")
+    print(f"K3 {BATCH}x4K ({n} lanes): kernel {k3_ms:.3f} ms per batch; "
+          f"plain {k3_plain_ms:.1f} ms; C++ runtime {cpp_ms:.3f} ms per batch "
+          f"({os.cpu_count()} threads per frame, host clock)", flush=True)
+    del ck, cp, lanes
+
+    # 5. The main path: hybrid corpus decode.
+    items = [read(SMALL_NO_RST), read(SMALL_RST[1])] + [
+        read(FRAMES_4K[i % 2]) for i in range(CORPUS_4K)]
+    warm = BatchedCorpusDecoder(hybrid_device=True, device_batch=BATCH)
+    warm.decode_all(items[:2] + items[2 : 2 + 4 * BATCH])
+    warm.close()
+    dec = BatchedCorpusDecoder(hybrid_device=True, device_batch=BATCH,
+                               device="cuda")
+    k1.LAUNCHES.reset()
+    k3.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hybrid = dec.decode_all(items)
+    wall = time.perf_counter() - t0
+    k1_launches, k3_launches = k1.LAUNCHES.value, k3.LAUNCHES.value
+    dec.close()
+    check(all(r.ok for r in hybrid),
+          f"main path: all {len(items)} items decoded "
+          f"({[r.error for r in hybrid if not r.ok]})")
+    check(dec.device_frames > 0 and k1_launches > 0 and k3_launches > 0,
+          f"main path went through the kernels: K1 launches {k1_launches}, "
+          f"K3 launches {k3_launches}, device-decoded frames {dec.device_frames}, "
+          f"fallbacks {dec.fallback_frames}")
+    fps = len(items) / wall
+    print(f"main path: {len(items)} frames ({CORPUS_4K} at 3840x2160) in "
+          f"{wall:.3f} s = {fps:.2f} frames/s, transfers included; device "
+          f"share {dec.device_frames / len(items):.3f}", flush=True)
+
+    host = BatchedCorpusDecoder(hybrid_device=False, device="cuda")
+    t0 = time.perf_counter()
+    host_res = host.decode_all(items)
+    host_wall = time.perf_counter() - t0
+    host.close()
+    print(f"host-entropy route, same corpus: {host_wall:.3f} s = "
+          f"{len(items) / host_wall:.2f} frames/s", flush=True)
+    check(all(h.ok and np.array_equal(h.rgb, g.rgb)
+              for h, g in zip(host_res, hybrid)),
+          "hybrid route == host route, every frame bit for bit")
+    single = decode_bytes(items[-1], path="fast", device="cuda")
+    check(np.array_equal(single, hybrid[-1].rgb),
+          "decode_bytes(path='fast', device='cuda') == batched result")
+    for k in (2, 3):
+        seed = k % 2
+        want = synthetic_image(3840, 2160, seed=seed)
+        got = hybrid[k].rgb
+        p = psnr(got, want)
+        check(got.shape == (2160, 3840, 3) and p > 30.0,
+              f"4K frame seed {seed}: shape {got.shape}, PSNR vs its source "
+              f"image {p:.2f} dB > 30")
+    for k, name in ((0, SMALL_NO_RST), (1, SMALL_RST[1])):
+        seed = int(name.split("_s")[1].split("_")[0])
+        want = synthetic_image(512, 384, seed=seed)
+        if "gray" in name:
+            want = np.repeat(np.round(want.astype(np.float64) @ [0.299, 0.587, 0.114])
+                             .clip(0, 255).astype(np.uint8)[..., None], 3, axis=2)
+        p = psnr(hybrid[k].rgb, want)
+        check(p > 30.0, f"{name}: PSNR vs its source image {p:.2f} dB > 30")
+
+    print(card, flush=True)  # nvidia-smi name, power limit
+    return [
+        {"name": "K1 fused_plane", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
+         "replaces": "jpeg_tpu/ops/pallas_kernels.py:215",
+         "launches": k1_launches, "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "K3 huffman_lanes", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
+         "replaces": "jpeg_tpu/entropy/device_window.py:175",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+    ]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import jpeg_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the jpeg_tpu_torch package is not beside this "
+              f"script ({e})", file=sys.stderr)
+        return 1
+    try:
+        kernels = run()
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""jpeg_tpu_torch: the PyTorch + CUDA port of jpeg_tpu for NVIDIA Hopper.
+
+A second package beside ``jpeg_tpu`` (the JAX reference, which it never
+imports). The ported slice is the hybrid corpus decode of 8-bit baseline
+Huffman JPEGs (YCbCr or gray):
+
+- host parse (``io/container.py``) and host C++ entropy decode
+  (``runtime``, the JAX package's C++ library bound with ctypes);
+- K3, the lane-per-restart-segment Huffman kernel
+  (``entropy/device_huffman.py``, ``csrc/huffman_lanes.cu``);
+- K1, the fused dequant + IDCT + upsample + colour kernel
+  (``ops/fused_plane.py``, ``csrc/fused_plane.cu``);
+- the corpus decoder (``parallel/pipeline.py``).
+
+Every public entry point takes an explicit ``device`` (default ``"cuda"``).
+On CPU tensors each kernel wrapper runs its plain PyTorch twin; on CUDA
+tensors it launches the kernel or raises.
+"""
+
+__version__ = "0.1.0"
+
+from jpeg_tpu_torch.io.container import DecodePlan, JPEGError, parse_jpeg  # noqa: F401
+from jpeg_tpu_torch.models.decoder import decode_bytes, decode_file  # noqa: F401
+from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder, DecodeResult  # noqa: F401

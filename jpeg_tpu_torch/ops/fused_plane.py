@@ -1,0 +1,199 @@
+"""K1, the fused pixel stage: int16 coefficient planes -> planar RGB u8.
+
+Counterpart of the fast path in ``jpeg_tpu/ops/pallas_kernels.py``
+(``fused_plane_decoder`` / ``_plane_kernel``, ``padded_plane_shapes``,
+``plan_quant_patterns``, ``decode_planes_fused``). The CUDA kernel is
+``csrc/fused_plane.cu``; :func:`fused_plane_decode_plain` is its plain
+PyTorch twin, computing the same fp32 operations in the same order.
+
+:func:`fused_plane_decode` takes the plain version only for tensors on the
+CPU. For CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from jpeg_tpu_torch.ops.color import grayscale_to_rgb, ycbcr_to_rgb
+from jpeg_tpu_torch.ops.idct import dct_basis_1d
+from jpeg_tpu_torch.ops.zigzag import unzigzag
+from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
+
+# Plane layout constants, shared with the C++ runtime that writes the planes:
+# Y strides are padded to whole TILE_W column tiles, rows to whole BAND_ROWS
+# bands (pad regions zero, decoded to mid-gray and cropped off).
+TILE_W = 256
+BAND_ROWS = 128
+
+LAUNCHES = LaunchCounter()
+
+
+def band_mcus(geom) -> int:
+    """MCU rows per band (BAND_ROWS of Y resolution)."""
+    return BAND_ROWS // (8 * geom.v_max)
+
+
+def n_bands(geom) -> int:
+    return -(-geom.mcus_y // band_mcus(geom))
+
+
+def padded_size(geom) -> tuple[int, int]:
+    """(H_pad, W_pad) of the planar output: whole bands by whole tiles."""
+    return (n_bands(geom) * BAND_ROWS,
+            -(-geom.mcus_x * geom.h_max * 8 // TILE_W) * TILE_W)
+
+
+def padded_plane_shapes(geom) -> list[tuple[int, int]]:
+    """[rows, stride] per component of the padded plane layout: the Y stride
+    is a multiple of TILE_W and each component's stride maps one Y tile to
+    whole chroma tiles; rows cover whole BAND_ROWS bands."""
+    h_pad, w_pad = padded_size(geom)
+    return [(h_pad * v // geom.v_max, w_pad * h // geom.h_max)
+            for (h, v) in geom.sampling]
+
+
+def plan_quant_patterns(plan, geom) -> np.ndarray:
+    """[n_comp, 64] f32 natural-order dequant table per component. (The TPU
+    kernel tiles each table over its block; K1 indexes the 8x8 table.)"""
+    return np.stack([
+        unzigzag(plan.quant_tables[c.quant_id].astype(np.float32))
+        for c in plan.components])
+
+
+def _basis(device) -> torch.Tensor:
+    return torch.tensor(dct_basis_1d(), dtype=torch.float32, device=device)
+
+
+def _check_inputs(planes, qtabs, geom) -> int:
+    n_comp = len(geom.sampling)
+    if n_comp not in (1, 3):
+        raise ValueError(f"K1 takes 1 or 3 components, got {n_comp}")
+    if len(planes) != n_comp:
+        raise ValueError(f"expected {n_comp} planes, got {len(planes)}")
+    batch = planes[0].shape[0]
+    for p, shape in zip(planes, padded_plane_shapes(geom)):
+        if p.dtype != torch.int16 or tuple(p.shape) != (batch, *shape):
+            raise ValueError(
+                f"plane must be int16 [{batch}, {shape[0]}, {shape[1]}], got "
+                f"{p.dtype} {tuple(p.shape)}")
+    if qtabs.dtype != torch.float32 or tuple(qtabs.shape) != (batch, n_comp, 64):
+        raise ValueError(f"qtabs must be float32 [{batch}, {n_comp}, 64], got "
+                         f"{qtabs.dtype} {tuple(qtabs.shape)}")
+    return batch
+
+
+def _rounding_mode(rounding: str) -> int:
+    if rounding not in ("truncate", "round"):
+        raise ValueError(f"unknown rounding {rounding!r}")
+    return int(rounding == "round")
+
+
+def fused_plane_decode_plain(planes, qtabs, geom,
+                             rounding: str = "truncate") -> torch.Tensor:
+    """Plain PyTorch K1. ``planes``: per component int16 [B, rows_c,
+    stride_c] (:func:`padded_plane_shapes`); ``qtabs``: f32 [B, n_comp, 64]
+    natural order. Returns planar u8 [B, 3, H_pad, W_pad].
+
+    The separable IDCT sums its eight terms in index order with each
+    product rounded, as the kernel does: vertical pass first,
+    t[y][u] = sum_v A[v][y] F[v][u], then s[y][x] = sum_u t[y][u] A[u][x]."""
+    _check_inputs(planes, qtabs, geom)
+    _rounding_mode(rounding)
+    a = _basis(planes[0].device)
+    spatial = []
+    for ci, (h, v) in enumerate(geom.sampling):
+        p = planes[ci]
+        batch, rows, cols = p.shape
+        f = p.to(torch.float32).view(batch, rows // 8, 8, cols // 8, 8)
+        f = f * qtabs[:, ci].view(batch, 1, 8, 1, 8)
+        t = a[0].view(1, 1, 8, 1, 1) * f[:, :, 0:1]
+        for k in range(1, 8):
+            t = t + a[k].view(1, 1, 8, 1, 1) * f[:, :, k:k + 1]
+        s = t[..., 0:1] * a[0]
+        for k in range(1, 8):
+            s = s + t[..., k:k + 1] * a[k]
+        s = s.reshape(batch, rows, cols)
+        fy, fx = geom.v_max // v, geom.h_max // h
+        spatial.append(s.repeat_interleave(fy, dim=1).repeat_interleave(fx, dim=2))
+    if len(spatial) == 1:
+        return grayscale_to_rgb(spatial[0], rounding)
+    return ycbcr_to_rgb(*spatial, rounding=rounding)
+
+
+def _configure(lib) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.jt_fused_plane_decode.restype = ctypes.c_int
+    lib.jt_fused_plane_decode.argtypes = [
+        ctypes.POINTER(vp), ctypes.POINTER(i64), ctypes.POINTER(i64),
+        ctypes.POINTER(i32), ctypes.POINTER(i32),  # planes, rows, strides, h, v
+        i32, i32, i32, i32, i32,  # n_comp, h_max, v_max, band_mcus, n_bands
+        vp, vp, vp,  # qtab, basis, out
+        i64, i64, i64, i32, vp,  # batch, h_pad, w_pad, round_mode, stream
+    ]
+
+
+def load_kernel():
+    """Build (at first use) and load the K1 library. ``--fmad=false`` keeps
+    nvcc from contracting the colour stage's multiply-adds."""
+    return load_cuda_kernel("fused_plane", ("--fmad=false",), _configure)
+
+
+def fused_plane_decode_cuda(planes, qtabs, geom,
+                            rounding: str = "truncate") -> torch.Tensor:
+    """Launch K1 on the current stream. Same contract as
+    :func:`fused_plane_decode_plain`; every tensor must be on one CUDA
+    device and contiguous."""
+    batch = _check_inputs(planes, qtabs, geom)
+    mode = _rounding_mode(rounding)
+    dev = planes[0].device
+    for t in (*planes, qtabs):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("K1 inputs must be contiguous and on one device")
+    lib = load_kernel()
+    shapes = padded_plane_shapes(geom)
+    n_comp = len(shapes)
+    h_pad, w_pad = padded_size(geom)
+    basis = _basis(dev)
+    out = torch.empty((batch, 3, h_pad, w_pad), dtype=torch.uint8, device=dev)
+    ptrs = (ctypes.c_void_p * n_comp)(*[p.data_ptr() for p in planes])
+    rows = (ctypes.c_int64 * n_comp)(*[s[0] for s in shapes])
+    strides = (ctypes.c_int64 * n_comp)(*[s[1] for s in shapes])
+    hs = (ctypes.c_int32 * n_comp)(*[h for h, _ in geom.sampling])
+    vs = (ctypes.c_int32 * n_comp)(*[v for _, v in geom.sampling])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.jt_fused_plane_decode(
+        ptrs, rows, strides, hs, vs, n_comp, geom.h_max, geom.v_max,
+        band_mcus(geom), n_bands(geom), qtabs.data_ptr(), basis.data_ptr(),
+        out.data_ptr(), batch, h_pad, w_pad, mode, stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+    LAUNCHES.add()
+    return out
+
+
+def fused_plane_decode(planes, qtabs, geom,
+                       rounding: str = "truncate") -> torch.Tensor:
+    """K1 wrapper: the plain version for CPU tensors, the kernel for CUDA
+    tensors (no fallback between them)."""
+    if planes[0].device.type == "cpu":
+        return fused_plane_decode_plain(planes, qtabs, geom, rounding)
+    if planes[0].device.type == "cuda":
+        return fused_plane_decode_cuda(planes, qtabs, geom, rounding)
+    raise ValueError(f"K1 runs on cpu or cuda, not {planes[0].device}")
+
+
+def decode_planes_fused(planes, plan, rounding: str = "truncate",
+                        device="cuda") -> np.ndarray:
+    """One image's int16 planes (native_decode_planes layout) -> RGB
+    [H, W, 3] u8 on the host, through K1 on ``device``."""
+    from jpeg_tpu_torch.models.decoder import PipelineGeometry
+
+    geom = PipelineGeometry.of(plan)
+    planes_t = [torch.as_tensor(p, device=device).unsqueeze(0) for p in planes]
+    qtabs = torch.as_tensor(plan_quant_patterns(plan, geom),
+                            device=device).unsqueeze(0)
+    planar = fused_plane_decode(planes_t, qtabs, geom, rounding)
+    return planar[0, :, : geom.height, : geom.width].permute(1, 2, 0).cpu().numpy()

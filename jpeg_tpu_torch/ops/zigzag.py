@@ -1,0 +1,33 @@
+"""Zigzag permutation constants and helpers.
+
+Copy of ``jpeg_tpu/ops/zigzag.py`` (the JAX package cannot be imported
+without loading jax). Parity: reference ``src/jpeg/decoder.rs:404-437``
+(``ZIGZAG_INDICES``, ``zigzag``, ``zigzag_inverse``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# ZIGZAG_INDICES[j] = natural (row-major) index of the j-th coefficient in
+# zigzag scan order. Identical table to reference src/jpeg/decoder.rs:404-407.
+ZIGZAG_INDICES = np.array(
+    [
+        0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+        12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+        35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+        58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    ],
+    dtype=np.int32,
+)
+
+# INVERSE: NATURAL_TO_ZIGZAG[k] = position in zigzag order of natural index k.
+NATURAL_TO_ZIGZAG = np.argsort(ZIGZAG_INDICES).astype(np.int32)
+
+
+def unzigzag(block_zz: np.ndarray) -> np.ndarray:
+    """[..., 64] zigzag-order -> natural (row-major) order.
+
+    np.take instead of fancy indexing / scatter: 10x faster on big
+    block stacks (110 -> 10 ms on a 4K frame's 130k blocks)."""
+    return np.take(block_zz, NATURAL_TO_ZIGZAG, axis=-1)

@@ -1,0 +1,132 @@
+"""Build the port's native code at first use and load it with ctypes.
+
+Two kinds of shared library, both with a plain C interface:
+
+- CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``
+  (Hopper), one library per kernel so each keeps its own flags;
+- the host C++ entropy runtime (``jpeg_tpu/runtime/native/jpegtpu.cpp``),
+  compiled by ``g++`` without the JAX package's profile-guided step (its
+  training script imports jax).
+
+Libraries land in ``jpeg_tpu_torch/build/`` (listed in ``.gitignore``) under
+a name that carries a hash of the sources, the command and the host name,
+so an edited source is rebuilt and a stale library is never loaded. Builds are
+serialized across threads and processes with a file lock and published
+with an atomic rename. A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import platform
+import shutil
+import subprocess
+import threading
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPO_DIR = os.path.dirname(PACKAGE_DIR)
+BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread",
+             "-shared"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+class LaunchCounter:
+    """Number of launches of one kernel. A wrapper adds one where it launches
+    its kernel and nowhere else, so a run can show the kernel was used."""
+
+    def __init__(self):
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+class BuildError(RuntimeError):
+    """A compiler run failed; the message carries its output."""
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin/nvcc`` (as PyTorch resolves
+    CUDA_HOME), else the one on ``PATH``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [os.path.join(CUDA_HOME, "bin", "nvcc")] if CUDA_HOME else []
+    cands.append(shutil.which("nvcc") or "")
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _digest(cmd: list[str], sources: list[str]) -> str:
+    # The host name is part of the key: g++ builds with -march=native, so a
+    # library built on one machine must not be loaded on another.
+    h = hashlib.sha256(" ".join([platform.node(), *cmd]).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build_library(name: str, compiler: list[str], sources: list[str]) -> str:
+    """Compile ``sources`` with ``compiler`` (the command without ``-o`` and
+    the sources) into ``build/lib<name>-<hash>.so``; returns the path. A
+    library that already exists under the same hash is reused."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"lib{name}-{_digest(compiler, sources)}.so")
+    if os.path.exists(out):
+        return out
+    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if os.path.exists(out):  # another process built it meanwhile
+            return out
+        tmp = f"{out}.tmp{os.getpid()}"
+        proc = subprocess.run([*compiler, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise BuildError(
+                f"building {name} failed ({compiler[0]} exit "
+                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def load_library(name: str, compiler: list[str], sources: list[str],
+                 configure) -> ctypes.CDLL:
+    """Build (if needed) and load a library once per process;
+    ``configure(lib)`` declares its ctypes signatures."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build_library(name, compiler, sources))
+            configure(lib)
+            _loaded[name] = lib
+        return lib
+
+
+def load_cuda_kernel(name: str, extra_flags: tuple[str, ...],
+                     configure) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` with nvcc for sm_90a and load it."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    return load_library(name, [find_nvcc(), *NVCC_FLAGS, *extra_flags],
+                        [src], configure)

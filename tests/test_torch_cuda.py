@@ -1,0 +1,89 @@
+"""jpeg_tpu_torch's CUDA kernels against their plain PyTorch versions, on
+the card. Marked ``cuda``; each test skips where no CUDA device is present.
+
+This file imports neither jax nor jpeg_tpu, so it also runs on a machine
+without them (tests/conftest.py imports jax; skip it there):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes
+from jpeg_tpu_torch.entropy import device_huffman as k3
+from jpeg_tpu_torch.io.container import parse_jpeg
+from jpeg_tpu_torch.models.decoder import PipelineGeometry
+from jpeg_tpu_torch.ops import fused_plane as k1
+from jpeg_tpu_torch.runtime import native_decode_planes
+
+pytestmark = pytest.mark.cuda
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "goldens", "torch")
+SMALL = ["synth_512x384_s2_q85_rst1.jpg", "synth_512x384_s3_q85_rst0.jpg",
+         "synth_512x384_s4_q85_rst1_gray.jpg"]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _read(name):
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("rounding", ["truncate", "round"])
+@pytest.mark.parametrize("name", SMALL)
+def test_k1_kernel_equals_plain(cuda, name, rounding):
+    """Same fp32 operations in the same order: identical pixels."""
+    plan = parse_jpeg(_read(name))
+    geom = PipelineGeometry.of(plan)
+    planes = [torch.from_numpy(p.copy()).unsqueeze(0).to(cuda)
+              for p in native_decode_planes(plan)]
+    qt = torch.from_numpy(k1.plan_quant_patterns(plan, geom)).unsqueeze(0).to(cuda)
+    before = k1.LAUNCHES.value
+    got = k1.fused_plane_decode(planes, qt, geom, rounding)
+    assert k1.LAUNCHES.value == before + 1
+    want = k1.fused_plane_decode_plain(planes, qt, geom, rounding)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", [SMALL[0], SMALL[2]])
+def test_k3_kernel_equals_plain_on_corrupt_streams(cuda, name):
+    base = parse_jpeg(_read(name))
+    rng = np.random.default_rng(3)
+    plans = [base]
+    for _ in range(6):
+        p = parse_jpeg(_read(name))
+        pos = rng.choice(len(p.scan_data), size=2, replace=False)
+        p.scan_data[pos] ^= rng.integers(1, 256, size=2).astype(np.uint8)
+        plans.append(p)
+    batch = k3.prepare_lane_batch(plans)
+    lanes = k3.lane_tensors(batch, cuda)
+    n = len(batch.lane_start)
+    before = k3.LAUNCHES.value
+    ck, ek = k3.decode_lanes(lanes, n, batch.total_rows)
+    assert k3.LAUNCHES.value == before + 1
+    cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
+    assert torch.equal(ek, ep)
+    assert torch.equal(ck, cp)
+
+
+def test_hybrid_corpus_on_card(cuda):
+    items = [_read(SMALL[1]), _read(SMALL[2])] + [_read(SMALL[0])] * 12
+    dec = BatchedCorpusDecoder(workers=2, hybrid_device=True, device_batch=2,
+                               device=cuda)
+    got = dec.decode_all(items)
+    dec.close()
+    assert dec.device_frames > 0
+    for data, r in zip(items, got):
+        assert r.ok
+        np.testing.assert_array_equal(r.rgb, decode_bytes(data, device="cpu"))
