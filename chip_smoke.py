@@ -3,12 +3,23 @@
 
     python3 chip_smoke.py
 
-Builds the C++ entropy runtime and both CUDA kernels from this checkout,
-checks each kernel against its plain PyTorch version at the shapes the main
-path gives it, then drives the main path once: the hybrid host + device
-corpus decode of 64 images (62 of them 3840x2160 frames) through
-``BatchedCorpusDecoder(hybrid_device=True)``. It exits non-zero at the first
-failed check, without a result line, and when no CUDA device is present.
+Builds the C++ entropy runtime, the C++ entropy encoder and the three CUDA
+kernels from this checkout (all at once), checks each kernel against its
+plain PyTorch version at the shapes its path gives it, then drives two
+paths:
+
+- the hybrid host + device corpus decode of 64 images (62 of them
+  3840x2160 frames) through ``BatchedCorpusDecoder(hybrid_device=True)``
+  (K3 and K1);
+- encode -> decode: eight 3840x2160 frames encoded by
+  ``encode_rgb_device`` (K2 and the C++ packer), held to the CPU route's
+  bytes and to the host encoder's pixels, then decoded as a 32-item corpus
+  through the hybrid decoder (K3 and K1) and held to the host route and to
+  the source images.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after. The script exits non-zero at the first failed check, without a
+result line, and when no CUDA device is present.
 
 Output: check lines, then the ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels, and last a JSON result line.
@@ -21,6 +32,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -29,8 +41,11 @@ FIXTURES = os.path.join(REPO, "tests", "goldens", "torch")
 FRAMES_4K = ["synth_3840x2160_s0_q85_rst1.jpg", "synth_3840x2160_s1_q85_rst1.jpg"]
 SMALL_RST = ["synth_512x384_s2_q85_rst1.jpg", "synth_512x384_s4_q85_rst1_gray.jpg"]
 SMALL_NO_RST = "synth_512x384_s3_q85_rst0.jpg"
-BATCH = 8        # frames per K1 / K3 check, and per device claim
-CORPUS_4K = 62   # 4K frames in the main-path corpus (plus two small images)
+BATCH = 8        # frames per K1 / K2 / K3 check, and per device claim
+CORPUS_4K = 62   # 4K frames in the decode corpus (plus two small images)
+ROUND_TRIP = 32  # items in the encode -> decode corpus (the 8 streams, repeated)
+QUALITY = 85
+RESTART_4K = 240  # MCUs per restart interval: one per MCU row of a 4K frame
 K1_TOL = 1       # max |u8 diff| kernel vs plain (the repo's fused-tier bar)
 K1_FRAC = 0.05   # max share of differing pixels
 
@@ -115,6 +130,7 @@ def run() -> list[dict]:
         coefficient_planes_from_blocks,
         decode_bytes,
     )
+    from jpeg_tpu_torch.ops import fused_encode as k2
     from jpeg_tpu_torch.ops import fused_plane as k1
     from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
 
@@ -128,13 +144,25 @@ def run() -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # 1. Builds, from this checkout's sources.
-    for name, load in (("C++ runtime (g++)", runtime.load),
-                       ("K1 fused_plane.cu (nvcc sm_90a)", k1.load_kernel),
-                       ("K3 huffman_lanes.cu (nvcc sm_90a)", k3.load_kernel)):
+    # 1. Builds, from this checkout's sources, one compiler per library, all
+    #    started together.
+    def timed(load) -> float:
         t0 = time.perf_counter()
         load()
-        print(f"built {name} in {time.perf_counter() - t0:.3f} s", flush=True)
+        return time.perf_counter() - t0
+
+    builds = (("C++ runtime (g++)", runtime.load),
+              ("C++ entropy encoder (g++)", runtime.load_encoder),
+              ("K1 fused_plane.cu (nvcc sm_90a)", k1.load_kernel),
+              ("K2 fused_encode.cu (nvcc sm_90a)", k2.load_kernel),
+              ("K3 huffman_lanes.cu (nvcc sm_90a)", k3.load_kernel))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futs = [(name, pool.submit(timed, load)) for name, load in builds]
+        for name, fut in futs:
+            print(f"built {name} in {fut.result():.3f} s", flush=True)
+    print(f"all builds (in parallel): {time.perf_counter() - t0:.3f} s",
+          flush=True)
 
     # 2. K1 against its plain version at each bucket shape of the main path:
     #    the 4K bucket of CORPUS_4K frames and the two 512x384 images.
@@ -270,9 +298,10 @@ def run() -> list[dict]:
     single = decode_bytes(items[-1], path="fast", device="cuda")
     check(np.array_equal(single, hybrid[-1].rgb),
           "decode_bytes(path='fast', device='cuda') == batched result")
+    sources = [synthetic_image(3840, 2160, seed=seed) for seed in (0, 1)]
     for k in (2, 3):
         seed = k % 2
-        want = synthetic_image(3840, 2160, seed=seed)
+        want = sources[seed]
         got = hybrid[k].rgb
         p = psnr(got, want)
         check(got.shape == (2160, 3840, 3) and p > 30.0,
@@ -287,6 +316,13 @@ def run() -> list[dict]:
         p = psnr(hybrid[k].rgb, want)
         check(p > 30.0, f"{name}: PSNR vs its source image {p:.2f} dB > 30")
 
+    # 6.-8. The encoder: K2 against its plain version, the encode path, and
+    #    encode -> decode.
+    frames = [sources[i % 2] for i in range(BATCH)]
+    k2_err, k2_ms, k2_plain_ms = check_k2(frames, dev)
+    streams, k2_launches = encode_path(frames)
+    k1_launches, k3_launches = round_trip(streams, sources)
+
     print(card, flush=True)  # nvidia-smi name, power limit
     return [
         {"name": "K1 fused_plane", "route": "cuda",
@@ -294,12 +330,172 @@ def run() -> list[dict]:
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:215",
          "launches": k1_launches, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "K2 fused_encode", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/fused_encode.cu",
+         "replaces": "jpeg_tpu/ops/pallas_kernels.py:410",
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "K3 huffman_lanes", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms},
     ]
+
+
+def check_k2(frames, dev) -> tuple[int, float, float]:
+    """K2 against its plain version: the 8-frame 4K 4:2:0 batch (one
+    launch for all, as ``encode_batch_device`` takes it), its first frame
+    alone (the shape ``encode_rgb_device`` launches), a 512x384 gray image
+    and a 512x384 4:4:4 image. Returns (max abs err, kernel ms, plain ms)
+    at the 8-frame batch."""
+    import torch
+
+    from jpeg_tpu_torch.models.encoder import device_inputs
+    from jpeg_tpu_torch.ops import fused_encode as k2
+
+    def inputs(imgs, **kw):
+        parts = [device_inputs(im, QUALITY, **kw) for im in imgs]
+        return (parts[0][0],
+                torch.from_numpy(np.stack([p[1] for p in parts])).to(dev),
+                torch.from_numpy(np.stack([p[2] for p in parts])).to(dev))
+
+    def compare(label, geom, rgb, iq) -> int:
+        got = k2.fused_plane_encode(rgb, iq, geom)
+        want = k2.fused_plane_encode_plain(rgb, iq, geom)
+        err = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
+                  for g, w in zip(got, want))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"K2 vs plain, {label}: every plane identical (max abs err {err})")
+        return err
+
+    gray = synthetic_image(512, 384, seed=4)[..., 0]
+    err = compare("512x384 gray", *inputs([gray], grayscale=True))
+    err = max(err, compare("512x384 4:4:4", *inputs(
+        [synthetic_image(512, 384, seed=2)], subsampling=(1, 1))))
+    geom, rgb, iq = inputs(frames, subsampling=(2, 2))
+    size = f"{geom.width}x{geom.height}"
+    err = max(err, compare(f"{len(frames)}x{size} 4:2:0", geom, rgb, iq))
+    err = max(err, compare(f"1x{size} 4:2:0", geom, rgb[:1], iq[:1]))
+    ms = cuda_ms(lambda: k2.fused_plane_encode(rgb, iq, geom), 10, 2)
+    plain_ms = cuda_ms(lambda: k2.fused_plane_encode_plain(rgb, iq, geom), 3, 1)
+    ms1 = cuda_ms(lambda: k2.fused_plane_encode(rgb[:1], iq[:1], geom), 10, 2)
+    plain1 = cuda_ms(lambda: k2.fused_plane_encode_plain(rgb[:1], iq[:1], geom),
+                     3, 1)
+    print(f"K2 {len(frames)}x{size} 4:2:0: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; 1x{size}: kernel {ms1:.3f} ms, plain "
+          f"{plain1:.3f} ms (median, CUDA events)", flush=True)
+    return err, ms, plain_ms
+
+
+def encode_path(frames) -> tuple[list[bytes], int]:
+    """The encode path: ``encode_rgb_device`` on each frame (K2 + the C++
+    packer), its stages timed, the CPU route's bytes, and the host encoder
+    on the same frames. Returns (the device streams, K2 launches)."""
+    import torch
+
+    from jpeg_tpu_torch import decode_bytes, encode_rgb, encode_rgb_device
+    from jpeg_tpu_torch.models.encoder import device_inputs, pack_planes
+    from jpeg_tpu_torch.ops import fused_encode as k2
+    from jpeg_tpu_torch.parallel.batch import encode_batch_device
+
+    kw = dict(quality=QUALITY, subsampling=(2, 2),
+              restart_interval_mcus=RESTART_4K)
+    encode_rgb_device(frames[0], device="cuda", **kw)  # warm-up
+    k2.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = [encode_rgb_device(f, device="cuda", **kw) for f in frames]
+    wall = time.perf_counter() - t0
+    launches = k2.LAUNCHES.value
+    check(launches == len(frames),
+          f"encode path went through K2: {launches} launches for "
+          f"{len(frames)} frames")
+
+    # The same frames again, stage by stage.
+    stage = dict.fromkeys(("host prep (pad, tables)", "H2D + K2",
+                           "D2H of planes", "C++ pack + container"), 0.0)
+    names = list(stage)
+    for f, want in zip(frames, streams):
+        t = [time.perf_counter()]
+        geom, planar, iq, quant_zz = device_inputs(f, QUALITY, (2, 2))
+        t.append(time.perf_counter())
+        planes = encode_batch_device(planar[None], iq[None], geom, "cuda")
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        host = [p[0].cpu().numpy() for p in planes]
+        t.append(time.perf_counter())
+        data = pack_planes(host, geom, quant_zz, RESTART_4K)
+        t.append(time.perf_counter())
+        if data != want:
+            raise CheckFailed("staged encode differs from encode_rgb_device")
+        for i, n in enumerate(names):
+            stage[n] += t[i + 1] - t[i]
+    print("encode_rgb_device stages over "
+          f"{len(frames)} frames (host clock, s): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in stage.items()), flush=True)
+
+    cpu = encode_rgb_device(frames[0], device="cpu", **kw)
+    check(cpu == streams[0],
+          "encode_rgb_device bytes: device='cuda' == device='cpu' "
+          f"({len(cpu)} bytes)")
+
+    t0 = time.perf_counter()
+    host_streams = [encode_rgb(f, **kw) for f in frames]
+    host_wall = time.perf_counter() - t0
+    p = psnr(decode_bytes(host_streams[0], device="cuda"),
+             decode_bytes(streams[0], device="cuda"))
+    check(p >= 45.0, f"host encode_rgb vs encode_rgb_device, decoded: "
+          f"{p:.2f} dB >= 45")
+    h, w = frames[0].shape[:2]
+    print(f"encode {len(frames)}x{w}x{h} q{QUALITY} 4:2:0: encode_rgb_device "
+          f"{len(frames) / wall:.3f} frames/s ({wall:.3f} s, host clock, "
+          f"transfers included), mean stream {np.mean([len(x) for x in streams]):.0f} "
+          f"bytes; host encode_rgb {len(frames) / host_wall:.3f} frames/s "
+          f"({host_wall:.3f} s), mean stream "
+          f"{np.mean([len(x) for x in host_streams]):.0f} bytes", flush=True)
+    return streams, launches
+
+
+def round_trip(streams, sources) -> tuple[int, int]:
+    """Encode -> decode: the device streams, repeated to ROUND_TRIP items,
+    through the hybrid corpus decoder. Returns (K1, K3) launches."""
+    import torch
+
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
+
+    items = [streams[i % len(streams)] for i in range(ROUND_TRIP)]
+    dec = BatchedCorpusDecoder(hybrid_device=True, device_batch=BATCH,
+                               device="cuda")
+    k1.LAUNCHES.reset()
+    k3.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dec.decode_all(items)
+    wall = time.perf_counter() - t0
+    k1_launches, k3_launches = k1.LAUNCHES.value, k3.LAUNCHES.value
+    dec.close()
+    check(all(r.ok for r in got),
+          f"round trip: all {len(items)} items decoded "
+          f"({[r.error for r in got if not r.ok]})")
+    check(k1_launches > 0 and k3_launches > 0 and dec.device_frames > 0,
+          f"round trip went through the kernels: K1 launches {k1_launches}, "
+          f"K3 launches {k3_launches}, device-decoded frames "
+          f"{dec.device_frames}, fallbacks {dec.fallback_frames}")
+    host = BatchedCorpusDecoder(hybrid_device=False, device="cuda")
+    want = host.decode_all(items)
+    host.close()
+    check(all(h.ok and np.array_equal(h.rgb, g.rgb) for h, g in zip(want, got)),
+          "round trip: hybrid route == host route, every frame bit for bit")
+    worst = min(psnr(r.rgb, sources[i % 2]) for i, r in enumerate(got))
+    check(worst > 30.0, f"round trip: every frame's PSNR vs its source image "
+          f"> 30 dB (worst {worst:.2f} dB)")
+    print(f"round trip: {len(items)} frames decoded in {wall:.3f} s = "
+          f"{len(items) / wall:.2f} frames/s, transfers included; device "
+          f"share {dec.device_frames / len(items):.3f}", flush=True)
+    return k1_launches, k3_launches
 
 
 def main() -> int:

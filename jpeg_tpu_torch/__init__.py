@@ -1,8 +1,10 @@
 """jpeg_tpu_torch: the PyTorch + CUDA port of jpeg_tpu for NVIDIA Hopper.
 
 A second package beside ``jpeg_tpu`` (the JAX reference, which it never
-imports). The ported slice is the hybrid corpus decode of 8-bit baseline
-Huffman JPEGs (YCbCr or gray):
+imports). Two slices are ported, both for 8-bit baseline Huffman JPEGs
+(YCbCr or gray).
+
+The hybrid corpus decode:
 
 - host parse (``io/container.py``) and host C++ entropy decode
   (``runtime``, the JAX package's C++ library bound with ctypes);
@@ -11,6 +13,15 @@ Huffman JPEGs (YCbCr or gray):
 - K1, the fused dequant + IDCT + upsample + colour kernel
   (``ops/fused_plane.py``, ``csrc/fused_plane.cu``);
 - the corpus decoder (``parallel/pipeline.py``).
+
+The encoder (``models/encoder.py``):
+
+- ``encode_rgb``: forward transform in NumPy on the host, as in the JAX
+  package, then the C++ entropy encoder (``runtime``) or the Python packer;
+- ``encode_rgb_device``: K2, the fused colour + box mean + forward DCT +
+  quantise kernel (``ops/fused_encode.py``, ``csrc/fused_encode.cu``;
+  batched by ``parallel/batch.py::encode_batch_device``), then the C++
+  entropy encoder.
 
 Every public entry point takes an explicit ``device`` (default ``"cuda"``).
 On CPU tensors each kernel wrapper runs its plain PyTorch twin; on CUDA
@@ -21,4 +32,5 @@ __version__ = "0.1.0"
 
 from jpeg_tpu_torch.io.container import DecodePlan, JPEGError, parse_jpeg  # noqa: F401
 from jpeg_tpu_torch.models.decoder import decode_bytes, decode_file  # noqa: F401
+from jpeg_tpu_torch.models.encoder import encode_rgb, encode_rgb_device  # noqa: F401
 from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder, DecodeResult  # noqa: F401

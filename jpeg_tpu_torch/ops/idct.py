@@ -1,11 +1,15 @@
-"""The 1-D DCT basis the pixel kernel (K1) and its plain version use.
+"""The 1-D DCT basis the pixel kernel (K1), the forward kernel (K2) and their
+plain versions use, and the host encoder's forward DCT matrix.
 
-Copy of ``jpeg_tpu.ops.idct.dct_basis_1d``. The fused [64, 64] matrix of the
-JAX compat pipeline is not part of the port's path: K1 runs the separable
-8x8 IDCT with this basis in fp32.
+Copies of ``jpeg_tpu.ops.idct.dct_basis_1d`` and ``forward_dct_matrix``. The
+fused [64, 64] dequant matrix of the JAX compat pipeline is not part of the
+port's path: K1 and K2 run the separable 8x8 transform with this basis in
+fp32.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 
@@ -22,3 +26,16 @@ def dct_basis_1d() -> np.ndarray:
     alpha = np.ones(8, dtype=np.float64)
     alpha[0] = 1.0 / np.sqrt(2.0)
     return (alpha[:, None] / 2.0) * a
+
+
+@lru_cache(maxsize=None)
+def _idct_kron() -> np.ndarray:
+    """kron(A, A): [64, 64] so that out_flat = F_flat(natural) @ K."""
+    a = dct_basis_1d()
+    return np.kron(a, a)
+
+
+def forward_dct_matrix(dtype=np.float32) -> np.ndarray:
+    """[64, 64] matrix: flat pixels (natural order) -> DCT coefficients
+    (natural order): coeffs = pixels @ kron(A, A).T (used by the encoder)."""
+    return _idct_kron().T.astype(dtype)

@@ -31,3 +31,8 @@ def unzigzag(block_zz: np.ndarray) -> np.ndarray:
     np.take instead of fancy indexing / scatter: 10x faster on big
     block stacks (110 -> 10 ms on a 4K frame's 130k blocks)."""
     return np.take(block_zz, NATURAL_TO_ZIGZAG, axis=-1)
+
+
+def zigzag(block_nat: np.ndarray) -> np.ndarray:
+    """[..., 64] natural order -> zigzag order (np.take: see unzigzag)."""
+    return np.take(block_nat, ZIGZAG_INDICES, axis=-1)

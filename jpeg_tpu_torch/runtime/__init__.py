@@ -1,6 +1,6 @@
-"""Host C++ entropy runtime, bound with ctypes.
+"""Host C++ entropy runtime and entropy encoder, bound with ctypes.
 
-Binds three entry points of the JAX package's C++ library
+Binds three entry points of the JAX package's C++ decode library
 (``jpeg_tpu/runtime/native/jpegtpu.cpp``) without importing ``jpeg_tpu``:
 
 - ``jt_decode_scan_planes``: restart-segment-parallel Huffman decode into
@@ -9,7 +9,11 @@ Binds three entry points of the JAX package's C++ library
   of a single-segment scan, used for multi-threaded single-image decode;
 - ``jt_unstuff_scan``: byte unstuffing and restart split for large scans.
 
-The library is compiled with g++ into ``jpeg_tpu_torch/build/`` at first use
+and ``jt_encode_scan`` of its C++ entropy encoder
+(``jpeg_tpu/runtime/native/jpegtpu_enc.cpp``): restart-segment-parallel
+Huffman packing of natural-order int16 planes (the layout K2 writes).
+
+Each library is compiled with g++ into ``jpeg_tpu_torch/build/`` at first use
 (no profile-guided step: its training script imports jax). A missing
 compiler or a failed build raises; there is no numpy fallback on this path.
 """
@@ -24,7 +28,9 @@ import numpy as np
 
 from jpeg_tpu_torch.utils.build import GXX_FLAGS, REPO_DIR, load_library
 
-SOURCE = os.path.join(REPO_DIR, "jpeg_tpu", "runtime", "native", "jpegtpu.cpp")
+NATIVE_DIR = os.path.join(REPO_DIR, "jpeg_tpu", "runtime", "native")
+SOURCE = os.path.join(NATIVE_DIR, "jpegtpu.cpp")
+ENC_SOURCE = os.path.join(NATIVE_DIR, "jpegtpu_enc.cpp")
 
 # Output buffers reused per thread (see native_decode_planes).
 _tls = threading.local()
@@ -210,3 +216,81 @@ def native_unstuff_scan(data: np.ndarray, start: int):
     )
     bounds = [(int(seg_s[i]), int(seg_e[i])) for i in range(int(n))]
     return out[: int(out_len[0])], bounds, start + int(consumed[0])
+
+
+def _configure_enc(lib: ctypes.CDLL) -> None:
+    """ctypes signature of ``jt_encode_scan``, as ``jpeg_tpu/runtime/
+    __init__.py`` declares it."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.jt_encode_scan.restype = ctypes.c_int32
+    lib.jt_encode_scan.argtypes = [
+        ctypes.POINTER(i16p), i64p,  # planes, strides
+        u8p, u8p, u8p, ctypes.c_int32,  # slot comp/vi/hi, bpm
+        u8p, u8p, ctypes.c_int32, ctypes.c_int32,  # comp h/v, n_comp, mcus_x
+        ctypes.c_int64, ctypes.c_int32,  # n_mcus, restart_interval
+        u32p, u8p, u32p, u8p,  # dc/ac code+len tables [2][256]
+        u8p,  # comp_tid
+        u8p, ctypes.c_int64, i64p,  # out, seg_capacity, seg_bytes
+        ctypes.c_int32,  # n_threads
+    ]
+
+
+def load_encoder() -> ctypes.CDLL:
+    """Build (at first use) and load the C++ entropy encoder."""
+    return load_library("jpegtpu_enc", ["g++", *GXX_FLAGS], [ENC_SOURCE],
+                        _configure_enc)
+
+
+def native_encode_scan(planes, slots, comp_h, comp_v, mcus_x, n_mcus,
+                       restart_interval, dc_code, dc_len, ac_code, ac_len,
+                       comp_tid, n_threads: int | None = None) -> list[bytes]:
+    """Entropy-encode quantized natural-order int16 planes -> per-restart-
+    segment byte strings (each byte-aligned; caller interleaves RST markers).
+
+    Parallel across segments. ``dc_code``/... are [2, 256] symbol tables
+    (uint32 codes / uint8 lengths), ``comp_tid`` the 0/1 selector per
+    component. Same contract as ``jpeg_tpu.runtime.native_encode_scan``.
+    """
+    lib = load_encoder()
+    if n_threads is None:
+        n_threads = os.cpu_count() or 1
+    planes = [np.ascontiguousarray(p, dtype=np.int16) for p in planes]
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    ptrs = (i16p * len(planes))(*[_p(p, ctypes.c_int16) for p in planes])
+    strides = np.array([p.shape[1] for p in planes], dtype=np.int64)
+    slot_comp = np.array([s[0] for s in slots], dtype=np.uint8)
+    slot_vi = np.array([s[1] for s in slots], dtype=np.uint8)
+    slot_hi = np.array([s[2] for s in slots], dtype=np.uint8)
+    bpm = len(slots)
+    ri = restart_interval or n_mcus
+    n_segs = -(-n_mcus // ri)
+    # Worst case ~ stuffing-doubled 27 bits/coefficient.
+    seg_capacity = int(ri * bpm * 64 * 8 + 64)
+    for _ in range(3):
+        out = np.empty(n_segs * seg_capacity, dtype=np.uint8)
+        seg_bytes = np.zeros(n_segs, dtype=np.int64)
+        rc = lib.jt_encode_scan(
+            ptrs, _p(strides, ctypes.c_int64),
+            _p(slot_comp, ctypes.c_uint8), _p(slot_vi, ctypes.c_uint8),
+            _p(slot_hi, ctypes.c_uint8), bpm,
+            _p(np.asarray(comp_h, np.uint8), ctypes.c_uint8),
+            _p(np.asarray(comp_v, np.uint8), ctypes.c_uint8),
+            len(planes), mcus_x, n_mcus, restart_interval,
+            _p(np.ascontiguousarray(dc_code, np.uint32), ctypes.c_uint32),
+            _p(np.ascontiguousarray(dc_len, np.uint8), ctypes.c_uint8),
+            _p(np.ascontiguousarray(ac_code, np.uint32), ctypes.c_uint32),
+            _p(np.ascontiguousarray(ac_len, np.uint8), ctypes.c_uint8),
+            _p(np.asarray(comp_tid, np.uint8), ctypes.c_uint8),
+            _p(out, ctypes.c_uint8), seg_capacity,
+            _p(seg_bytes, ctypes.c_int64), n_threads,
+        )
+        if rc == 0:
+            return [
+                out[s * seg_capacity : s * seg_capacity + seg_bytes[s]].tobytes()
+                for s in range(n_segs)
+            ]
+        seg_capacity *= 4
+    raise RuntimeError("encode scan capacity overflow")

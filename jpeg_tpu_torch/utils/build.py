@@ -6,7 +6,9 @@ Two kinds of shared library, both with a plain C interface:
   (Hopper), one library per kernel so each keeps its own flags;
 - the host C++ entropy runtime (``jpeg_tpu/runtime/native/jpegtpu.cpp``),
   compiled by ``g++`` without the JAX package's profile-guided step (its
-  training script imports jax).
+  training script imports jax), and the C++ entropy encoder
+  (``jpeg_tpu/runtime/native/jpegtpu_enc.cpp``), compiled by ``g++`` as a
+  library of its own.
 
 Libraries land in ``jpeg_tpu_torch/build/`` (listed in ``.gitignore``) under
 a name that carries a hash of the sources, the command and the host name,
@@ -37,6 +39,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread",
              "-shared"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_locks: dict[str, threading.Lock] = {}  # one per library: builds run in parallel
 _lock = threading.Lock()
 
 
@@ -114,8 +117,11 @@ def build_library(name: str, compiler: list[str], sources: list[str]) -> str:
 def load_library(name: str, compiler: list[str], sources: list[str],
                  configure) -> ctypes.CDLL:
     """Build (if needed) and load a library once per process;
-    ``configure(lib)`` declares its ctypes signatures."""
+    ``configure(lib)`` declares its ctypes signatures. Different libraries
+    may be built from different threads at once."""
     with _lock:
+        lk = _locks.setdefault(name, threading.Lock())
+    with lk:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(build_library(name, compiler, sources))

@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes
+from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes, encode_rgb_device
 from jpeg_tpu_torch.entropy import device_huffman as k3
 from jpeg_tpu_torch.io.container import parse_jpeg
+from jpeg_tpu_torch.models import encoder
 from jpeg_tpu_torch.models.decoder import PipelineGeometry
+from jpeg_tpu_torch.ops import fused_encode as k2
 from jpeg_tpu_torch.ops import fused_plane as k1
 from jpeg_tpu_torch.runtime import native_decode_planes
 
@@ -87,3 +89,52 @@ def test_hybrid_corpus_on_card(cuda):
     for data, r in zip(items, got):
         assert r.ok
         np.testing.assert_array_equal(r.rgb, decode_bytes(data, device="cpu"))
+
+
+def _image(width, height, seed):
+    """Smooth colour fields plus noise, made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    img = np.stack([128 + 80 * np.sin(xx / 17.0 + seed) * np.cos(yy / 11.0),
+                    128 + 80 * np.sin(xx / 9.0) * np.cos(yy / 23.0 + seed),
+                    128 + 80 * np.cos(xx / 31.0 + yy / 7.0)], axis=-1)
+    img += rng.normal(0, 6.0, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+K2_CASES = {"4:2:0": (2, 2), "4:4:4": (1, 1), "gray": None}
+
+
+@pytest.mark.parametrize("name", K2_CASES)
+def test_k2_kernel_equals_plain(cuda, name):
+    """Same fp32 operations in the same order: identical coefficients; the
+    launch counter moves by exactly one per call."""
+    sub = K2_CASES[name]
+    img = _image(300, 77, seed=len(name))
+    if sub is None:
+        img = img[..., 0]
+    geom, planar, iq, _ = encoder.device_inputs(img, 85, sub or (1, 1),
+                                                sub is None)
+    rgb = torch.from_numpy(np.stack([planar] * 2)).to(cuda)
+    iqt = torch.from_numpy(np.stack([iq] * 2)).to(cuda)
+    before = k2.LAUNCHES.value
+    got = k2.fused_plane_encode(rgb, iqt, geom)
+    assert k2.LAUNCHES.value == before + 1
+    again = k2.fused_plane_encode(rgb, iqt, geom)
+    assert k2.LAUNCHES.value == before + 2
+    want = k2.fused_plane_encode_plain(rgb, iqt, geom)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(subsampling=(2, 2), restart_interval_mcus=2),
+    dict(subsampling=(1, 1), quality=95),
+    dict(grayscale=True, restart_interval_mcus=3, optimize=True),
+])
+def test_encode_rgb_device_cuda_bytes_equal_cpu(cuda, kwargs):
+    img = _image(200, 120, seed=7)
+    if kwargs.get("grayscale"):
+        img = img[..., 0]
+    assert (encode_rgb_device(img, device=cuda, **kwargs)
+            == encode_rgb_device(img, device="cpu", **kwargs))

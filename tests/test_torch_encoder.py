@@ -1,0 +1,339 @@
+"""The encoder slice: K2's plain version against jpeg_tpu's Pallas encode
+kernel in interpret mode, the port's encode_rgb / encode_rgb_device /
+encode_batch_device / native_encode_scan against jpeg_tpu's on the same
+seeded inputs, round trips through the port's own decoders, and the host
+copies (annex_k, optimize, zigzag, forward_dct_matrix) held to their
+originals field by field.
+
+Bar for K2: |diff| <= 1 on under 1e-4 of the coefficients. The plain
+version follows the order in which XLA runs the JAX kernel on the CPU (its
+multiply-adds contracted into fused multiply-adds, sums in index order) and
+matches it exactly on these inputs; the bar leaves room for another XLA to
+order a quantisation tie differently."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from jpeg_tpu.entropy import annex_k as ref_annex_k
+from jpeg_tpu.entropy import optimize as ref_optimize
+from jpeg_tpu.io.corpus import synthetic_image
+from jpeg_tpu.models import encoder as ref_enc
+from jpeg_tpu.models.decoder import PipelineGeometry as RefGeometry
+from jpeg_tpu.ops import idct as ref_idct
+from jpeg_tpu.ops import zigzag as ref_zigzag
+from jpeg_tpu.ops.pallas_kernels import fused_plane_encoder, plan_inv_quant_patterns
+from jpeg_tpu.parallel.batch import encode_batch_device as ref_encode_batch
+from jpeg_tpu.runtime import native_encode_scan as ref_native_encode_scan
+from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes
+from jpeg_tpu_torch.entropy import annex_k, optimize
+from jpeg_tpu_torch.models import encoder as enc
+from jpeg_tpu_torch.ops import idct, zigzag
+from jpeg_tpu_torch.ops.fused_encode import (
+    fused_plane_encode,
+    plan_inv_quant_tables,
+)
+from jpeg_tpu_torch.parallel.batch import encode_batch_device
+from jpeg_tpu_torch.runtime import native_encode_scan
+
+SAMPLINGS = {"4:4:4": (1, 1), "4:2:2": (2, 1), "4:4:0": (1, 2),
+             "4:2:0": (2, 2), "4:1:1": (4, 1), "gray": None}
+
+
+def _psnr(a, b):
+    mse = ((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean()
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0**2 / mse)
+
+
+def _image(width, height, seed, gray=False):
+    img = synthetic_image(width, height, seed=seed)
+    return img[..., 0] if gray else img
+
+
+def _k2_inputs(img, sub, quality):
+    """(port geometry, JAX geometry, planar u8, per-component zigzag
+    quant tables) for one image, as encode_rgb_device lays them out."""
+    geom, planar, _, quant_zz = enc.device_inputs(img, quality, sub or (1, 1),
+                                                  sub is None)
+    comp_q = [quant_zz[min(ci, len(quant_zz) - 1)]
+              for ci in range(len(geom.sampling))]
+    ref_geom = RefGeometry(width=geom.width, height=geom.height,
+                           mcus_x=geom.mcus_x, mcus_y=geom.mcus_y,
+                           h_max=geom.h_max, v_max=geom.v_max,
+                           sampling=geom.sampling)
+    return geom, ref_geom, planar, comp_q
+
+
+def _assert_k2_close(got, want):
+    assert got.dtype == np.int16 and got.shape == want.shape
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-4
+
+
+@pytest.mark.parametrize("size,sub", [
+    *[((520, 300), name) for name in SAMPLINGS], ((1920, 1080), "4:2:0")])
+def test_k2_plain_matches_pallas_interpret(size, sub):
+    img = _image(*size, seed=len(sub), gray=sub == "gray")
+    geom, ref_geom, planar, comp_q = _k2_inputs(img, SAMPLINGS[sub], 85)
+    want = fused_plane_encoder(ref_geom, True)(
+        jnp.asarray(planar),
+        *[jnp.asarray(q) for q in plan_inv_quant_patterns(comp_q, ref_geom)])
+    got = fused_plane_encode(torch.from_numpy(planar)[None],
+                             torch.from_numpy(plan_inv_quant_tables(comp_q))[None],
+                             geom)
+    assert len(got) == len(want) == len(geom.sampling)
+    for g, w in zip(got, want):
+        _assert_k2_close(g[0].numpy(), np.asarray(w))
+
+
+def test_encode_batch_device_matches_jax():
+    """Three images of one geometry with different quant tables, one launch."""
+    parts = [_k2_inputs(_image(136, 72, seed=30 + i), (2, 2), q)
+             for i, q in enumerate((50, 85, 97))]
+    geom, ref_geom = parts[0][0], parts[0][1]
+    planar = np.stack([p[2] for p in parts])
+    pats = [plan_inv_quant_patterns(p[3], ref_geom) for p in parts]
+    want = ref_encode_batch(planar, [np.stack([pt[c] for pt in pats])
+                                     for c in range(3)],
+                            ref_geom, interpret=True)
+    got = encode_batch_device(
+        planar, np.stack([plan_inv_quant_tables(p[3]) for p in parts]), geom,
+        device="cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cpu"
+        _assert_k2_close(g.numpy(), np.asarray(w))
+
+
+ENCODE_CASES = {
+    "native-420-rst0": dict(subsampling=(2, 2)),
+    "native-444-rst2": dict(subsampling=(1, 1), restart_interval_mcus=2),
+    "native-422-rst2": dict(subsampling=(2, 1), restart_interval_mcus=2),
+    "python-444-rst0": dict(engine="python", subsampling=(1, 1)),
+    "python-420-rst2": dict(engine="python", subsampling=(2, 2),
+                            restart_interval_mcus=2),
+    "native-gray-rst2": dict(gray=True, restart_interval_mcus=2),
+    "python-gray-rst0": dict(engine="python", gray=True),
+    "native-optimize-rst2": dict(optimize=True, restart_interval_mcus=2),
+    "python-optimize": dict(engine="python", optimize=True),
+    "native-comment": dict(comment="port parity é", quality=60),
+}
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_encode_rgb_bytes_match_jax(case):
+    kw = dict(ENCODE_CASES[case])
+    gray = kw.pop("gray", False)
+    img = _image(61, 45, seed=len(case), gray=gray)
+    kw.setdefault("quality", 85)
+    assert enc.encode_rgb(img, **kw) == ref_enc.encode_rgb(img, **kw)
+
+
+@pytest.mark.parametrize("restart", [0, 1, 3])
+def test_native_encode_scan_matches_jax(restart):
+    rng = np.random.default_rng(restart)
+    samplings = [(2, 2), (1, 1), (1, 1)]
+    mcus_x, mcus_y = 5, 3
+    planes = [rng.laplace(0, 6, (mcus_y * v * 8, mcus_x * h * 8 + 16))
+              .round().astype(np.int16) for h, v in samplings]
+    dc_t, ac_t = enc._huffman_tables(False, False)
+    maps = [[enc._build_encode_maps(t) for t in ts] for ts in (dc_t, ac_t)]
+    args = (planes, enc._slots(samplings), [2, 1, 1], [2, 1, 1], mcus_x,
+            mcus_x * mcus_y, restart,
+            np.stack([m[0] for m in maps[0]]), np.stack([m[1] for m in maps[0]]),
+            np.stack([m[0] for m in maps[1]]), np.stack([m[1] for m in maps[1]]),
+            [0, 1, 1])
+    got = native_encode_scan(*args)
+    assert len(got) == (-(-mcus_x * mcus_y // restart) if restart else 1)
+    assert got == ref_native_encode_scan(*args)
+
+
+def _header(data: bytes) -> bytes:
+    """Bytes from SOI through the SOS segment (tables, SOF, DRI, SOS)."""
+    sos = data.index(b"\xff\xda")
+    return data[: sos + 2 + int.from_bytes(data[sos + 2 : sos + 4], "big")]
+
+
+DEVICE_CASES = {
+    "420-rst2": dict(subsampling=(2, 2), restart_interval_mcus=2),
+    "444-rst0": dict(subsampling=(1, 1), quality=92),
+    "gray-rst3": dict(gray=True, restart_interval_mcus=3),
+    "422-optimize": dict(subsampling=(2, 1), optimize=True, quality=70),
+}
+
+
+@pytest.mark.parametrize("case", DEVICE_CASES)
+def test_encode_rgb_device_matches_jax(case):
+    kw = dict(DEVICE_CASES[case])
+    gray = kw.pop("gray", False)
+    img = _image(150, 70, seed=len(case), gray=gray)
+    got = enc.encode_rgb_device(img, device="cpu", **kw)
+    want = ref_enc.encode_rgb_device(img, interpret=True, **kw)
+    assert _header(got) == _header(want)
+    assert _psnr(decode_bytes(got, device="cpu"),
+                 decode_bytes(want, device="cpu")) >= 45.0
+
+
+@pytest.mark.parametrize("entry", ["encode_rgb", "encode_rgb_device"])
+def test_optimize_is_smaller_with_identical_pixels(entry):
+    fn = getattr(enc, entry)
+    kw = dict(device="cpu") if entry == "encode_rgb_device" else {}
+    img = _image(96, 80, seed=5)
+    std = fn(img, quality=88, restart_interval_mcus=4, **kw)
+    opt = fn(img, quality=88, restart_interval_mcus=4, optimize=True, **kw)
+    assert len(opt) < len(std)
+    np.testing.assert_array_equal(decode_bytes(opt, device="cpu"),
+                                  decode_bytes(std, device="cpu"))
+
+
+def test_round_trip_through_port_decoders():
+    """encode_rgb_device(cpu) -> decode_bytes and the hybrid corpus decoder."""
+    imgs = [_image(96, 64, seed=i) for i in range(12)]
+    items = [enc.encode_rgb_device(im, quality=85, restart_interval_mcus=3,
+                                   device="cpu") for im in imgs]
+    dec = BatchedCorpusDecoder(workers=2, hybrid_device=True, device_batch=2,
+                               device="cpu")
+    got = dec.decode_all(items)
+    dec.close()
+    assert dec.device_frames > 0
+    for im, data, r in zip(imgs, items, got):
+        assert r.ok
+        single = decode_bytes(data, device="cpu")
+        np.testing.assert_array_equal(r.rgb, single)
+        assert _psnr(single, im) > 30.0
+
+
+def _assert_same(a, b, where):
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, where
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name), f"{where}.{f.name}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    else:
+        assert a == b, where
+
+
+def _public_constants(module):
+    return sorted(n for n in vars(module) if n.isupper())
+
+
+def test_copy_annex_k():
+    names = _public_constants(annex_k)
+    assert names == _public_constants(ref_annex_k)
+    for n in names:
+        _assert_same(getattr(annex_k, n), getattr(ref_annex_k, n), n)
+    for q in (-5, 1, 10, 49, 50, 51, 85, 100, 150):
+        for base in ("QUANT_LUMA", "QUANT_CHROMA"):
+            _assert_same(
+                annex_k.scaled_quant_table(getattr(annex_k, base), q),
+                ref_annex_k.scaled_quant_table(getattr(ref_annex_k, base), q),
+                f"{base}@{q}")
+
+
+def test_copy_optimize():
+    rng = np.random.default_rng(4)
+    for k in range(6):
+        freq = rng.integers(0, 1000, 256) * (rng.random(256) < 0.1 * (k + 1))
+        freq[rng.integers(0, 256)] += 1
+        _assert_same(optimize.build_optimal_table(freq),
+                     ref_optimize.build_optimal_table(freq), f"freq{k}")
+    samplings = [(2, 1), (1, 1), (1, 1)]
+    blocks = [rng.laplace(0, 3, (4 * v, 6 * h, 64)).round().astype(np.int32)
+              for h, v in samplings]
+    for restart in (0, 1, 5):
+        _assert_same(optimize.symbol_histograms(blocks, samplings, restart, 6, 4),
+                     ref_optimize.symbol_histograms(blocks, samplings, restart,
+                                                    6, 4), f"hist@{restart}")
+
+
+def test_copy_zigzag():
+    for n in ("ZIGZAG_INDICES", "NATURAL_TO_ZIGZAG"):
+        _assert_same(getattr(zigzag, n), getattr(ref_zigzag, n), n)
+    x = np.random.default_rng(1).integers(-99, 99, (5, 3, 64)).astype(np.int32)
+    _assert_same(zigzag.zigzag(x), ref_zigzag.zigzag(x), "zigzag")
+    _assert_same(zigzag.unzigzag(x), ref_zigzag.unzigzag(x), "unzigzag")
+
+
+def test_copy_forward_dct_matrix():
+    _assert_same(idct.dct_basis_1d(), ref_idct.dct_basis_1d(), "basis")
+    for dtype in (np.float32, np.float64):
+        _assert_same(idct.forward_dct_matrix(dtype),
+                     ref_idct.forward_dct_matrix(dtype), str(dtype))
+
+
+BAD_SHAPES = [(0, 8, 3), (8, 0), (8, 8, 2), (8,), (2, 8, 8, 3)]
+
+
+@pytest.mark.parametrize("entry", ["encode_rgb", "encode_rgb_device"])
+@pytest.mark.parametrize("shape", BAD_SHAPES)
+def test_rejected_shapes_raise_value_error(entry, shape):
+    img = np.zeros(shape, np.uint8)
+    kw = dict(device="cpu") if entry == "encode_rgb_device" else {}
+    with pytest.raises(ValueError, match="expected"):
+        getattr(enc, entry)(img, **kw)
+    with pytest.raises(ValueError, match="expected"):
+        ref_enc.encode_rgb(img)
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda img: enc.encode_rgb(img, arithmetic=True), "arithmetic"),
+    (lambda img: enc.encode_rgb(img.astype(np.uint16) * 16, precision=12),
+     "12-bit"),
+    (lambda img: enc.encode_rgb_progressive(img, quality=85), "progressive"),
+    (lambda img: enc.encode_cmyk(np.zeros((8, 8, 4), np.uint8)), "CMYK"),
+])
+def test_unported_routes_raise(call, match):
+    with pytest.raises(NotImplementedError, match=match) as err:
+        call(_image(24, 16, seed=0))
+    assert "ROADMAP.md" in str(err.value)
+
+
+def test_bad_options_raise_value_error():
+    img = _image(24, 16, seed=0)
+    with pytest.raises(ValueError, match="precision"):
+        enc.encode_rgb(img, precision=10)
+    with pytest.raises(ValueError, match="engine"):
+        enc.encode_rgb(img, engine="fortran")
+
+
+def test_wrapper_checks_inputs():
+    img = _image(40, 24, seed=2)
+    geom, _, planar, comp_q = _k2_inputs(img, (2, 2), 85)
+    rgb = torch.from_numpy(planar)[None]
+    iq = torch.from_numpy(plan_inv_quant_tables(comp_q))[None]
+    with pytest.raises(ValueError, match="uint8"):
+        fused_plane_encode(rgb.to(torch.float32), iq, geom)
+    with pytest.raises(ValueError, match="uint8"):
+        fused_plane_encode(rgb[..., :128], iq, geom)
+    with pytest.raises(ValueError, match="iqtabs"):
+        fused_plane_encode(rgb, iq.to(torch.float64), geom)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_plane_encode(rgb.to("meta"), iq.to("meta"), geom)
+    with pytest.raises(ValueError, match="sampling"):
+        fused_plane_encode(rgb, iq, dataclasses.replace(
+            geom, sampling=((3, 1), (1, 1), (1, 1)), h_max=3))
+
+
+def test_stream_parses_as_baseline_jfif():
+    """What the port writes, the port's parser reads back as written."""
+    from jpeg_tpu_torch.io.container import parse_jpeg
+
+    data = enc.encode_rgb_device(_image(72, 40, seed=9), quality=77,
+                                 subsampling=(2, 1), restart_interval_mcus=5,
+                                 device="cpu")
+    plan = parse_jpeg(data)
+    assert (plan.width, plan.height) == (72, 40)
+    assert [(c.h, c.v) for c in plan.components] == [(2, 1), (1, 1), (1, 1)]
+    assert plan.restart_interval == 5 and not plan.progressive
+    np.testing.assert_array_equal(
+        plan.quant_tables[0],
+        annex_k.scaled_quant_table(annex_k.QUANT_LUMA, 77))
