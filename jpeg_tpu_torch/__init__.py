@@ -1,8 +1,9 @@
 """jpeg_tpu_torch: the PyTorch + CUDA port of jpeg_tpu for NVIDIA Hopper.
 
 A second package beside ``jpeg_tpu`` (the JAX reference, which it never
-imports). Two slices are ported, both for 8-bit baseline Huffman JPEGs
-(YCbCr or gray).
+imports). Three slices are ported, all for 8-bit baseline Huffman JPEGs
+(YCbCr or gray), and each of the JAX package's Pallas kernels has a Hopper
+kernel.
 
 The hybrid corpus decode:
 
@@ -22,6 +23,13 @@ The encoder (``models/encoder.py``):
   quantise kernel (``ops/fused_encode.py``, ``csrc/fused_encode.cu``;
   batched by ``parallel/batch.py::encode_batch_device``), then the C++
   entropy encoder.
+
+The other kernels:
+
+- K4, the word-column Huffman kernel of the v4 in-kernel tier
+  (``entropy/device_kernel.py``, ``csrc/huffman_words.cu``);
+- K5 and K6, the bare dequant + IDCT roofline instrument
+  (``ops/idct_only.py``, ``csrc/idct_only.cu``).
 
 Every public entry point takes an explicit ``device`` (default ``"cuda"``).
 On CPU tensors each kernel wrapper runs its plain PyTorch twin; on CUDA

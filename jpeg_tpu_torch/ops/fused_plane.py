@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch.ops.color import grayscale_to_rgb, ycbcr_to_rgb
-from jpeg_tpu_torch.ops.idct import dct_basis_1d
+from jpeg_tpu_torch.ops.idct import dct_basis_1d, idct_blocks_plain
 from jpeg_tpu_torch.ops.zigzag import unzigzag
 from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
 
@@ -97,9 +97,8 @@ def fused_plane_decode_plain(planes, qtabs, geom,
     stride_c] (:func:`padded_plane_shapes`); ``qtabs``: f32 [B, n_comp, 64]
     natural order. Returns planar u8 [B, 3, H_pad, W_pad].
 
-    The separable IDCT sums its eight terms in index order with each
-    product rounded, as the kernel does: vertical pass first,
-    t[y][u] = sum_v A[v][y] F[v][u], then s[y][x] = sum_u t[y][u] A[u][x]."""
+    The separable IDCT is :func:`~jpeg_tpu_torch.ops.idct.idct_blocks_plain`,
+    the kernel's order of operations."""
     _check_inputs(planes, qtabs, geom)
     _rounding_mode(rounding)
     a = _basis(planes[0].device)
@@ -109,13 +108,7 @@ def fused_plane_decode_plain(planes, qtabs, geom,
         batch, rows, cols = p.shape
         f = p.to(torch.float32).view(batch, rows // 8, 8, cols // 8, 8)
         f = f * qtabs[:, ci].view(batch, 1, 8, 1, 8)
-        t = a[0].view(1, 1, 8, 1, 1) * f[:, :, 0:1]
-        for k in range(1, 8):
-            t = t + a[k].view(1, 1, 8, 1, 1) * f[:, :, k:k + 1]
-        s = t[..., 0:1] * a[0]
-        for k in range(1, 8):
-            s = s + t[..., k:k + 1] * a[k]
-        s = s.reshape(batch, rows, cols)
+        s = idct_blocks_plain(f, a).reshape(batch, rows, cols)
         fy, fx = geom.v_max // v, geom.h_max // h
         spatial.append(s.repeat_interleave(fy, dim=1).repeat_interleave(fx, dim=2))
     if len(spatial) == 1:

@@ -1,10 +1,11 @@
-"""The 1-D DCT basis the pixel kernel (K1), the forward kernel (K2) and their
-plain versions use, and the host encoder's forward DCT matrix.
+"""The 1-D DCT basis the pixel kernel (K1), the forward kernel (K2), the bare
+IDCT kernel (K5) and their plain versions use, and the host encoder's
+forward DCT matrix.
 
 Copies of ``jpeg_tpu.ops.idct.dct_basis_1d`` and ``forward_dct_matrix``. The
 fused [64, 64] dequant matrix of the JAX compat pipeline is not part of the
-port's path: K1 and K2 run the separable 8x8 transform with this basis in
-fp32.
+port's path: K1, K2 and K5 run the separable 8x8 transform with this basis
+in fp32.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 
 def dct_basis_1d() -> np.ndarray:
@@ -33,6 +35,21 @@ def _idct_kron() -> np.ndarray:
     """kron(A, A): [64, 64] so that out_flat = F_flat(natural) @ K."""
     a = dct_basis_1d()
     return np.kron(a, a)
+
+
+def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Separable 8x8 IDCT of dequantised blocks ``f [..., R, 8, C, 8]``
+    (block row, v, block column, u) with the basis ``a [8, 8]``, both fp32.
+    Eight terms summed in index order with each product rounded, as K1 and
+    K5 do: vertical pass first, t[y][u] = sum_v A[v][y] F[v][u], then
+    s[y][x] = sum_u t[y][u] A[u][x]."""
+    t = a[0].view(8, 1, 1) * f[..., 0:1, :, :]
+    for k in range(1, 8):
+        t = t + a[k].view(8, 1, 1) * f[..., k:k + 1, :, :]
+    s = t[..., 0:1] * a[0]
+    for k in range(1, 8):
+        s = s + t[..., k:k + 1] * a[k]
+    return s
 
 
 def forward_dct_matrix(dtype=np.float32) -> np.ndarray:

@@ -132,7 +132,13 @@ def load_library(name: str, compiler: list[str], sources: list[str],
 
 def load_cuda_kernel(name: str, extra_flags: tuple[str, ...],
                      configure) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` with nvcc for sm_90a and load it."""
+    """Build ``csrc/<name>.cu`` with nvcc for sm_90a and load it. Every
+    launch calls this: once loaded, the library is returned before anything
+    else (finding nvcc re-imports ``torch.utils.cpp_extension``, which
+    took 0.6 ms a call on the H100's host)."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     return load_library(name, [find_nvcc(), *NVCC_FLAGS, *extra_flags],
                         [src], configure)

@@ -166,6 +166,8 @@ def test_import_never_loads_jax():
     code = ("import sys; import jpeg_tpu_torch; "
             "import jpeg_tpu_torch.parallel.pipeline; "
             "import jpeg_tpu_torch.entropy.device_huffman; "
+            "import jpeg_tpu_torch.entropy.device_kernel; "
+            "import jpeg_tpu_torch.ops.idct_only; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'jpeg_tpu' not in sys.modules, 'jpeg_tpu loaded'")
     env = dict(os.environ, PYTHONPATH=REPO)

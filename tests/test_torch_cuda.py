@@ -15,11 +15,13 @@ import torch
 
 from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes, encode_rgb_device
 from jpeg_tpu_torch.entropy import device_huffman as k3
+from jpeg_tpu_torch.entropy import device_kernel as k4
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models import encoder
 from jpeg_tpu_torch.models.decoder import PipelineGeometry
 from jpeg_tpu_torch.ops import fused_encode as k2
 from jpeg_tpu_torch.ops import fused_plane as k1
+from jpeg_tpu_torch.ops import idct_only as k56
 from jpeg_tpu_torch.runtime import native_decode_planes
 
 pytestmark = pytest.mark.cuda
@@ -77,6 +79,54 @@ def test_k3_kernel_equals_plain_on_corrupt_streams(cuda, name):
     cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
     assert torch.equal(ek, ep)
     assert torch.equal(ck, cp)
+
+
+@pytest.mark.parametrize("runner", ["single", "batch"])
+@pytest.mark.parametrize("name", [SMALL[0], SMALL[2]])
+def test_k4_kernel_equals_plain_on_corrupt_streams(cuda, name, runner):
+    """Raw K4 outputs, every element and every flag, equal the plain
+    version's; the decoded coefficients of the clean image equal K3's."""
+    base = parse_jpeg(_read(name))
+    rng = np.random.default_rng(5)
+    plans = [base]
+    for _ in range(6):
+        p = parse_jpeg(_read(name))
+        pos = rng.choice(len(p.scan_data), size=2, replace=False)
+        p.scan_data[pos] ^= rng.integers(1, 256, size=2).astype(np.uint8)
+        plans.append(p)
+    if runner == "single":
+        run, args, mm, _ = k4.kernel_runner(plans[1], device=cuda)
+    else:
+        run, args, mm, _, _ = k4.kernel_runner_batch(plans, device=cuda)
+    before = k4.LAUNCHES.value
+    out, err = run(*args)
+    assert k4.LAUNCHES.value == before + 1
+    plain_out, plain_err = k4.decode_words_plain(
+        *args, *k4.kernel_constants(base, cuda), mm)
+    assert torch.equal(err, plain_err)
+    assert torch.equal(out, plain_out)
+    got, gerr = k4.decode_coefficients_device4(base, device=cuda)
+    want, werr = k3.decode_coefficients_device_batch([base], device=cuda)
+    assert not gerr.any() and not werr.any()
+    np.testing.assert_array_equal(got, want[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (512, 768)])
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_k5_k6_kernels_equal_plain(cuda, kernel, shape):
+    """Same fp32 operations in the same order: equal values (K5 == K6 too)."""
+    rng = np.random.default_rng(shape[0])
+    x = torch.from_numpy(rng.integers(-512, 512, shape).astype(np.int16)).to(cuda)
+    qpat = torch.from_numpy(k56.quant_pattern(np.arange(1, 65), 128, 256)).to(cuda)
+    build, counter, plain = {
+        "K5": (k56.idct_only_kernel, k56.LAUNCHES, k56.idct_only_plain),
+        "K6": (k56.idct_only_kernel_roll, k56.LAUNCHES_ROLL,
+               k56.idct_only_roll_plain)}[kernel]
+    before = counter.value
+    got = build(*shape)(x, qpat)
+    assert counter.value == before + 1
+    assert torch.equal(got, plain(x, qpat))
+    assert torch.equal(got, k56.idct_only_plain(x, qpat))
 
 
 def test_hybrid_corpus_on_card(cuda):
