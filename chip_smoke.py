@@ -5,8 +5,10 @@
 
 Builds the C++ entropy runtime, the C++ entropy encoder and the five CUDA
 libraries (K1-K6) from this checkout (all at once), checks each kernel
-against its plain PyTorch version at the shapes its path gives it, then
-drives four paths:
+against its plain PyTorch version at the shapes its path gives it (K1 on
+every sampling it takes, K3 on corrupt streams and eight 4K frames), times
+K1 at 8 and 62 4K frames and K3 at 1, 8 and 32, each beside its bound,
+then drives four paths:
 
 - the hybrid host + device corpus decode of 64 images (62 of them
   3840x2160 frames) through ``BatchedCorpusDecoder(hybrid_device=True)``
@@ -28,6 +30,13 @@ drives four paths:
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
 result line, and when no CUDA device is present.
+
+A kernel's bound is the least time the card could take for its work: the
+larger of its bytes (inputs read once, outputs written once) over the
+H100 SXM's 3.35 TB/s and its fp32 operations over 67 TFLOP/s (K3 and K4 do
+integer work, for which the data sheet gives no rate: bytes only).
+``library_ms`` is one PyTorch route to the same function where there is
+one (K5 and K6: cuDNN convolution + pixel shuffle), timed and never used.
 
 Output: check lines, then the ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels, and last a JSON result line.
@@ -54,11 +63,23 @@ CORPUS_4K = 62   # 4K frames in the decode corpus (plus two small images)
 ROUND_TRIP = 32  # items in the encode -> decode corpus (the 8 streams, repeated)
 QUALITY = 85
 RESTART_4K = 240  # MCUs per restart interval: one per MCU row of a 4K frame
-K1_TOL = 1       # max |u8 diff| kernel vs plain (the repo's fused-tier bar)
-K1_FRAC = 0.05   # max share of differing pixels
+K3_FRAMES = (1, 8, 32)  # 4K frames per timed K3 launch (135 lanes each)
+K3_INPUTS = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
+             "skip", "pair", "skip_hv", "skip_canon", "skip_slots")
+# K1 buckets beyond the main path's: luma (h, v) over 1x1 chroma, and gray.
+K1_SAMPLINGS = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2),
+                "4x1": (4, 1), "4x4": (4, 4), "gray": None}
 IDCT_SHAPE = (4096, 3840)  # bench.py's bench_idct_roofline plane
 IDCT_REL_TOL = 1e-6        # K5/K6 vs float64, relative to max |out|
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM spec peak (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM spec peaks (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12
+# fp32 operations of the transform kernels: a 1-D pass is 8 products and 7
+# sums per output, two passes per 8x8 block, plus one dequantise (K5, K6)
+# or quantise (K2) product per coefficient; K1 forms each mirrored product
+# once (4 of the 8 a pass per output pair); colour per output pixel: K1 12
+# (+3 when rounding), K2 15 (its chroma box mean not counted).
+OPS_PER_BLOCK = 2 * 64 * 15 + 64
+K1_OPS_PER_BLOCK = 2 * (32 * 8 + 64 * 7) + 64
 
 
 class CheckFailed(Exception):
@@ -116,6 +137,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
     return float(np.median(times))
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: float = 0.0) -> dict:
+    """The least time for ``n_bytes`` moved and ``n_ops`` fp32 operations,
+    and which of the two sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def share(ms: float, b: dict) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+            f"{b['bound_ms'] / ms:.4f} of it")
+
+
 def corrupt_copies(plan, n: int, seed: int) -> list:
     """``n`` copies of ``plan`` with seeded byte flips in the scan data."""
     import copy
@@ -136,7 +175,7 @@ def run() -> list[dict]:
     """All checks and the main path; returns the kernel records."""
     import torch
 
-    from jpeg_tpu_torch import runtime
+    from jpeg_tpu_torch import encode_rgb, runtime
     from jpeg_tpu_torch.entropy import device_huffman as k3
     from jpeg_tpu_torch.entropy import device_kernel as k4
     from jpeg_tpu_torch.io.container import parse_jpeg
@@ -182,8 +221,10 @@ def run() -> list[dict]:
     print(f"all builds (in parallel): {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    # 2. K1 against its plain version at each bucket shape of the main path:
-    #    the 4K bucket of CORPUS_4K frames and the two 512x384 images.
+    # 2. K1 against its plain version, pixel for pixel: every sampling it
+    #    takes (two small seeded images each, encoded by the port, both
+    #    roundings), then each bucket of the main path: the two 512x384
+    #    images and the CORPUS_4K frames.
     def k1_inputs(plans):
         geom = PipelineGeometry.of(plans[0])
         hp = [[p.copy() for p in runtime.native_decode_planes(pl)]
@@ -194,31 +235,53 @@ def run() -> list[dict]:
             [k1.plan_quant_patterns(pl, geom) for pl in plans])).to(dev)
         return planes, qtabs, geom, hp
 
+    def k1_check(label, plans, roundings=("truncate",)):
+        planes, qtabs, geom, hp = k1_inputs(plans)
+        for rounding in roundings:
+            out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding)
+            out_p = k1.fused_plane_decode_plain(planes, qtabs, geom, rounding)
+            err = int((out_k.to(torch.int16) - out_p.to(torch.int16)).abs().max())
+            check(err == 0, f"K1 vs plain, {label} bucket, {rounding}: every "
+                  "pixel identical")
+            del out_k, out_p
+        return planes, qtabs, geom, hp
+
+    def k1_bound(planes, qtabs, geom) -> dict:
+        h_pad, w_pad = k1.padded_size(geom)
+        pixels = qtabs.shape[0] * h_pad * w_pad
+        blocks = sum(p.numel() for p in planes) // 64
+        return bound(nbytes(*planes, qtabs) + 3 * pixels,
+                     blocks * K1_OPS_PER_BLOCK + 12 * pixels)
+
+    for name, sub in K1_SAMPLINGS.items():
+        imgs = [synthetic_image(520, 200, seed=seed) for seed in (5, 6)]
+        streams = [encode_rgb(im[..., 0], quality=QUALITY, grayscale=True)
+                   if sub is None else
+                   encode_rgb(im, quality=QUALITY, subsampling=sub)
+                   for im in imgs]
+        k1_check(f"{name} 2x520x200", [parse_jpeg(d) for d in streams],
+                 ("truncate", "round"))
+    n_bad, _, _ = k1.division_mismatches(device=dev)
+    check(n_bad == 0, "K1's fast x / 0.587 == IEEE division for every float "
+          "with 2^-100 <= |x| <= 2^100, where K1 takes it (0 of 3.4e9 differ)")
+    k1_check("512x384 no-restart", [parse_jpeg(read(SMALL_NO_RST))])
+    k1_check("512x384 gray", [parse_jpeg(read(SMALL_RST[1]))])
     plans4k = [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(CORPUS_4K)]
+    planes, qtabs, geom, host_planes = k1_check(f"{CORPUS_4K}x4K", plans4k)
     k1_err = 0
-    for label, plans in (("512x384 no-restart", [parse_jpeg(read(SMALL_NO_RST))]),
-                         ("512x384 gray", [parse_jpeg(read(SMALL_RST[1]))]),
-                         (f"{CORPUS_4K}x4K", plans4k)):
-        planes, qtabs, geom, host_planes = k1_inputs(plans)
-        out_k = k1.fused_plane_decode(planes, qtabs, geom)
-        out_p = k1.fused_plane_decode_plain(planes, qtabs, geom)
-        diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
-        err, frac = int(diff.max()), float((diff > 0).float().mean())
-        k1_err = max(k1_err, err)
-        check(err <= K1_TOL and frac < K1_FRAC,
-              f"K1 vs plain, {label} bucket: max |diff| {err} <= {K1_TOL}, "
-              f"differing share {frac:.3e} < {K1_FRAC}")
-        del out_k, out_p, diff
     k1_ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2)
     k1_plain_ms = cuda_ms(lambda: k1.fused_plane_decode_plain(planes, qtabs, geom), 3, 1)
-    print(f"K1 {CORPUS_4K}x4K bucket: kernel {k1_ms:.3f} ms, plain "
-          f"{k1_plain_ms:.3f} ms (median, CUDA events)", flush=True)
+    k1_bnd = k1_bound(planes, qtabs, geom)
+    print(f"K1 {CORPUS_4K}x4K bucket: kernel {k1_ms:.4f} ms, plain "
+          f"{k1_plain_ms:.3f} ms (median, CUDA events); {share(k1_ms, k1_bnd)}",
+          flush=True)
     # The same at one device claim's size (contiguous leading slices).
     p8, q8 = [p[:BATCH] for p in planes], qtabs[:BATCH]
     k1_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom), 10, 2)
     k1_8_plain = cuda_ms(lambda: k1.fused_plane_decode_plain(p8, q8, geom), 3, 1)
-    print(f"K1 {BATCH}x4K: kernel {k1_8:.3f} ms, plain {k1_8_plain:.3f} ms "
-          "(median, CUDA events)", flush=True)
+    k1_8_bnd = k1_bound(p8, q8, geom)
+    print(f"K1 {BATCH}x4K: kernel {k1_8:.4f} ms, plain {k1_8_plain:.3f} ms "
+          f"(median, CUDA events); {share(k1_8, k1_8_bnd)}", flush=True)
     del planes, qtabs, p8, q8
     plans4k, host_planes = plans4k[:BATCH], host_planes[:BATCH]
 
@@ -249,7 +312,6 @@ def run() -> list[dict]:
     lanes = k3.lane_tensors(batch, dev)
     n = len(batch.lane_start)
     ck, ek = k3.decode_lanes(lanes, n, batch.total_rows)
-    k3_ms = cuda_ms(lambda: k3.decode_lanes(lanes, n, batch.total_rows), 5, 1)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
@@ -272,10 +334,23 @@ def run() -> list[dict]:
                 raise CheckFailed(f"K3 planes of frame {i}, component {c} "
                                   "differ from the C++ decoder")
     check(True, f"K3 on {BATCH} 4K frames == C++ native_decode_planes, bit for bit")
-    print(f"K3 {BATCH}x4K ({n} lanes): kernel {k3_ms:.3f} ms per batch; "
-          f"plain {k3_plain_ms:.1f} ms; C++ runtime {cpp_ms:.3f} ms per batch "
-          f"({os.cpu_count()} threads per frame, host clock)", flush=True)
+    print(f"K3 {BATCH}x4K ({n} lanes): plain {k3_plain_ms:.1f} ms; C++ "
+          f"runtime {cpp_ms:.3f} ms per batch ({os.cpu_count()} threads per "
+          "frame, host clock)", flush=True)
     del cp
+    k3_time = {}  # frames -> (ms, bound)
+    for frames in K3_FRAMES:
+        b = batch if frames == BATCH else k3.prepare_lane_batch(
+            [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(frames)])
+        t = lanes if frames == BATCH else k3.lane_tensors(b, dev)
+        m = len(b.lane_start)
+        ms = cuda_ms(lambda: k3.decode_lanes(t, m, b.total_rows), 5, 1)
+        bnd = bound(nbytes(*(t[k] for k in K3_INPUTS)) + b.total_rows * 256 + m)
+        k3_time[frames] = (ms, bnd)
+        print(f"K3 {frames}x4K ({m} lanes): kernel {ms:.4f} ms (median, CUDA "
+              f"events); {share(ms, bnd)}", flush=True)
+        del t
+    k3_ms, k3_bnd = k3_time[BATCH]
     check_k4_4k(plans4k, host_planes, geom, ck, batch, k3_ms, dev)
     del ck, lanes
 
@@ -341,39 +416,47 @@ def run() -> list[dict]:
     # 6.-8. The encoder: K2 against its plain version, the encode path, and
     #    encode -> decode.
     frames = [sources[i % 2] for i in range(BATCH)]
-    k2_err, k2_ms, k2_plain_ms = check_k2(frames, dev)
+    k2_err, k2_ms, k2_plain_ms, k2_bnd = check_k2(frames, dev)
     streams, k2_launches = encode_path(frames)
-    k1_launches, k3_launches = round_trip(streams, sources)
+    k1_rt_launches, k3_rt_launches = round_trip(streams, sources)
 
     # 9. The single-frame device-entropy decode (K4 -> planes -> K1).
-    k4_launches, k4_4k_err, k4_ms, k4_plain_ms = single_frame_path(
+    k4_launches, k4_4k_err, k4_ms, k4_plain_ms, k4_bnd = single_frame_path(
         read(FRAMES_4K[0]), dev)
 
     # 10. K5 and K6 at the roofline instrument's shape.
     k5, k6 = idct_roofline(dev)
 
     print(card, flush=True)  # nvidia-smi name, power limit
+    # "launches" counts the main path's run (the hybrid corpus decode for
+    # K1 and K3); the round trip's own counts are kept beside them.
     return [
         {"name": "K1 fused_plane", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:215",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": k1_launches, "launches_round_trip": k1_rt_launches,
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
+         "ms_8_frames": k1_8, "bound_ms_8_frames": k1_8_bnd["bound_ms"]},
         {"name": "K2 fused_encode", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_encode.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:410",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bnd, "library_ms": None},
         {"name": "K3 huffman_lanes", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
-         "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "launches": k3_launches, "launches_round_trip": k3_rt_launches,
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         **k3_bnd, "library_ms": None, "frames": BATCH,
+         "ms_by_frames": {str(f): t[0] for f, t in k3_time.items()},
+         "bound_ms_by_frames": {str(f): t[1]["bound_ms"]
+                                for f, t in k3_time.items()}},
         {"name": "K4 huffman_words", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_words.cu",
          "replaces": "jpeg_tpu/entropy/device_kernel.py:251",
          "launches": k4_launches, "max_abs_err": max(k4_err, k4_4k_err),
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
+         "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bnd, "library_ms": None},
         {"name": "K5 idct_only", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:362", **k5},
@@ -453,12 +536,12 @@ def check_k4_4k(plans, host_planes, geom, k3_coeffs, k3_batch, k3_ms,
           f"{k3_1:.3f} ms (median, CUDA events)", flush=True)
 
 
-def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float]:
+def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float, dict]:
     """The single-frame device-entropy decode: K4 over the frame's restart
     segments, the coefficient planes, then K1 -> RGB, the coefficients
     staying on the card; held to ``decode_bytes(path="fast")`` (C++ entropy
     + K1). First K4 is held to its plain version on this frame's arguments.
-    Returns (K4 launches, max abs err, kernel ms, plain ms)."""
+    Returns (K4 launches, max abs err, kernel ms, plain ms, bound)."""
     import torch
 
     from jpeg_tpu_torch.entropy import device_kernel as k4
@@ -485,10 +568,11 @@ def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float]:
           and torch.equal(out_k, out_p),
           f"K4 vs plain on one 4K frame ({n} lanes, out {list(out_k.shape)}): "
           "no lane flagged, every element bit-identical")
+    bnd = bound(nbytes(*args, out_k, err_k))
     del out_k, out_p
     ms = cuda_ms(lambda: run(*args), 5, 1)
     print(f"K4 1x4K ({n} lanes): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
-          "(CUDA events)", flush=True)
+          f"(CUDA events); {share(ms, bnd)}", flush=True)
 
     def decode(data):
         plan = parse_jpeg(data)
@@ -517,14 +601,18 @@ def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float]:
     print(f"single-frame path, one 3840x2160 frame: {wall * 1e3:.3f} ms "
           "(host clock: parse, word columns + H2D, K4, relayout on the card, "
           "K1, D2H of RGB)", flush=True)
-    return k4_launches, err, ms, plain_ms
+    return k4_launches, err, ms, plain_ms, bnd
 
 
 def idct_roofline(dev) -> tuple[dict, dict]:
     """K5 and K6 on ``bench_idct_roofline``'s [4096, 3840] int16 plane
     (seed 0, values in [-512, 512), quant table 1..64): each equals its plain
     version, K5 equals K6 by value, both sit within IDCT_REL_TOL of a float64
-    reference. Returns the measured fields of the K5 and K6 records."""
+    reference. Beside them the closest library route is timed, which the
+    port never calls: a cast to fp32, cuDNN's convolution with an 8x8,
+    stride-8 kernel whose 64 filters fold the dequantisation into the IDCT
+    basis, and ``pixel_shuffle(8)`` (two calls after the cast; TF32 off).
+    Returns the measured fields of the K5 and K6 records."""
     import torch
 
     from jpeg_tpu_torch.ops import idct_only as k56
@@ -567,28 +655,41 @@ def idct_roofline(dev) -> tuple[dict, dict]:
               f"{name} vs float64 reference: max abs err {ref_err:.3e} <= "
               f"{IDCT_REL_TOL} x max |out| = {bar:.3e}")
     check(torch.equal(outs["K5"], outs["K6"]), "K5 == K6 by value")
+    fn = torch.nn.functional
+    w = torch.einsum("vy,ux,vu->yxvu", a, a, qpat[:8, :8].double())
+    w = w.reshape(64, 1, 8, 8).float()
+
+    def library():
+        y = fn.conv2d(x.float().view(1, 1, rows, cols), w, stride=8)
+        return fn.pixel_shuffle(y, 8).view(rows, cols)
+
+    lib_err = float((library().double() - ref).abs().max())
+    lib_ms = cuda_ms(library, 5, 3, inner=20)
+    print(f"library route (cast + cuDNN conv2d + pixel_shuffle) [{rows}, "
+          f"{cols}]: {lib_ms:.4f} ms (median, CUDA events, 20 in a row); max "
+          f"abs err vs float64 {lib_err:.3e}", flush=True)
     del ref, outs, want, out
     records, blocks = [], rows * cols // 64
+    bnd = bound(nbytes(x, qpat) + rows * cols * 4, rows * cols * OPS_PER_BLOCK / 64)
     for name, (run, plain) in runs.items():
         plain_ms = cuda_ms(lambda: plain(x, qpat), 3, 1)
         ms = cuda_ms(lambda: run(x, qpat), 5, 3, inner=20)
-        share = rows * cols * 6 / HBM_BYTES_PER_S / (ms / 1e3)
         print(f"{name} [{rows}, {cols}]: kernel {ms:.4f} ms = "
               f"{blocks / (ms / 1e3):.4e} blocks/s, plain {plain_ms:.3f} ms = "
-              f"{blocks / (plain_ms / 1e3):.4e} blocks/s; {share:.4f} of the "
-              "H100 SXM's 3.35 TB/s spec peak HBM bandwidth at 6 B per pixel "
+              f"{blocks / (plain_ms / 1e3):.4e} blocks/s; {share(ms, bnd)} "
               "(median, CUDA events, 20 launches in a row)", flush=True)
         records.append({"launches": launches[name], "max_abs_err": errs[name],
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, **bnd,
+                        "library_ms": lib_ms})
     return records[0], records[1]
 
 
-def check_k2(frames, dev) -> tuple[int, float, float]:
+def check_k2(frames, dev) -> tuple[int, float, float, dict]:
     """K2 against its plain version: the 8-frame 4K 4:2:0 batch (one
     launch for all, as ``encode_batch_device`` takes it), its first frame
     alone (the shape ``encode_rgb_device`` launches), a 512x384 gray image
-    and a 512x384 4:4:4 image. Returns (max abs err, kernel ms, plain ms)
-    at the 8-frame batch."""
+    and a 512x384 4:4:4 image. Returns (max abs err, kernel ms, plain ms,
+    bound) at the 8-frame batch."""
     import torch
 
     from jpeg_tpu_torch.models.encoder import device_inputs
@@ -618,14 +719,19 @@ def check_k2(frames, dev) -> tuple[int, float, float]:
     err = max(err, compare(f"{len(frames)}x{size} 4:2:0", geom, rgb, iq))
     err = max(err, compare(f"1x{size} 4:2:0", geom, rgb[:1], iq[:1]))
     ms = cuda_ms(lambda: k2.fused_plane_encode(rgb, iq, geom), 10, 2)
+    out = k2.fused_plane_encode(rgb, iq, geom)
+    bnd = bound(nbytes(rgb, iq, *out), sum(p.numel() for p in out) / 64
+                * OPS_PER_BLOCK + 15 * rgb[:, 0].numel())
+    del out
     plain_ms = cuda_ms(lambda: k2.fused_plane_encode_plain(rgb, iq, geom), 3, 1)
     ms1 = cuda_ms(lambda: k2.fused_plane_encode(rgb[:1], iq[:1], geom), 10, 2)
     plain1 = cuda_ms(lambda: k2.fused_plane_encode_plain(rgb[:1], iq[:1], geom),
                      3, 1)
     print(f"K2 {len(frames)}x{size} 4:2:0: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms; 1x{size}: kernel {ms1:.3f} ms, plain "
-          f"{plain1:.3f} ms (median, CUDA events)", flush=True)
-    return err, ms, plain_ms
+          f"{plain1:.3f} ms (median, CUDA events); at {len(frames)} frames "
+          f"{share(ms, bnd)}", flush=True)
+    return err, ms, plain_ms, bnd
 
 
 def encode_path(frames) -> tuple[list[bytes], int]:

@@ -7,6 +7,14 @@ Counterpart of ``jpeg_tpu/entropy/device_window.py``
 :func:`decode_lanes_plain` is its plain PyTorch twin, decoding all lanes in
 lockstep with tensor operations.
 
+The kernel runs in two passes: a serial walk per lane that records where
+each block starts and its DC predictor, then one thread per block decoding
+the coefficients. They read tables built here (:func:`kernel_tables`): per
+11-bit peek, the bits a symbol consumes and how far it advances the
+coefficient index, with its code length and magnitude bits for pass 2
+(:func:`skip_entries`), and for pass 1 the same for two AC symbols at once
+where both fit in the peek (:func:`pair_table`).
+
 Contract (bit for bit that of the TPU kernel run with a window that never
 overflows): per image a ``[total_blocks, 64]`` int32 array of zigzag-order,
 DC-predicted coefficients in MCU stream order, plus ``err [S]`` over all
@@ -31,6 +39,7 @@ import torch
 from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
 
 T11 = 2048  # primary LUT size (11-bit peek)
+MAX_LANE_BYTES = 1 << 28  # the kernel's per-block start bits are int32
 
 LAUNCHES = LaunchCounter()
 
@@ -75,6 +84,86 @@ def lane_tables(plan):
     return lut, hv, canon
 
 
+def _size_advance(sym, dc: bool):
+    """(magnitude bits, advance of the coefficient index) of symbols: a DC
+    symbol is its size and advances 1; an AC symbol's size is its low
+    nibble, it advances run + 1, and EOB (64) ends the block."""
+    sym = np.asarray(sym, np.int64)
+    if dc:
+        return sym, np.ones_like(sym)
+    return sym & 0xF, np.where(sym == 0, 64, (sym >> 4) + 1)
+
+
+def skip_entries(length, sym, dc: bool) -> np.ndarray:
+    """Skip-table entries (int32) of codes of ``length`` bits decoding to
+    ``sym`` in a DC (``dc``) or AC table. Bits 0-5: bits consumed, code and
+    magnitude; 8-12: code length; 16-20: magnitude bits; 24-30: advance of
+    the coefficient index (DC 1, EOB 64, else run + 1, so ZRL 16). The
+    kernel's ``make_entry`` builds the same entries for codes longer than
+    11 bits."""
+    length = np.asarray(length, np.int64)
+    size, adv = _size_advance(sym, dc)
+    return ((length + size) | (length << 8) | (size << 16)
+            | (adv << 24)).astype(np.int32)
+
+
+def skip_table(lut_row: np.ndarray, dc: bool) -> np.ndarray:
+    """[T11] int32 skip entries of one :func:`lane_tables` LUT row; 0 where
+    the code is longer than 11 bits or the prefix is invalid."""
+    length = lut_row & 0x1F
+    entries = skip_entries(length, (lut_row >> 8) & 0xFF, dc)
+    return np.where(length > 0, entries, 0).astype(np.int32)
+
+
+def pair_entries(length, sym, dc: bool) -> np.ndarray:
+    """Pass-1 entries (int32) of single codes: bits 0-5 bits consumed,
+    6-12 advance of the coefficient index, and for a DC table 27-31 the code
+    length (the DC magnitude follows it). The kernel's ``make_pair_entry``
+    builds the same for codes longer than 11 bits."""
+    length = np.asarray(length, np.int64)
+    size, adv = _size_advance(sym, dc)
+    return ((length + size) | (adv << 6)
+            | ((length << 27) if dc else 0)).astype(np.int32)
+
+
+def pair_table(lut_row: np.ndarray, dc: bool) -> np.ndarray:
+    """[T11] int32, pass 1's table of one row: :func:`pair_entries` of the
+    code at the top of each 11-bit peek, and in an AC row, where that code
+    is not EOB and the next whole code and its magnitude bits also lie
+    within the 11 bits, the pair: bits 13-18 bits both consume, 19-25 their
+    advance, bit 26 set. 0 where the code is longer than 11 bits or the
+    prefix is invalid."""
+    length = lut_row & 0x1F
+    sym = (lut_row >> 8) & 0xFF
+    single = pair_entries(length, sym, dc).astype(np.int64)
+    if not dc:
+        bits1 = length + (sym & 0xF)
+        second = (np.arange(T11) << np.minimum(bits1, 11)) & (T11 - 1)
+        len2, sym2 = length[second], sym[second]
+        bits2 = len2 + (sym2 & 0xF)
+        both = ((length > 0) & (sym != 0) & (len2 > 0)
+                & (bits1 + bits2 <= 11))
+        adv = (single >> 6) & 0x7F
+        adv2 = _size_advance(sym2, dc)[1]
+        single |= np.where(both, ((bits1 + bits2) << 13)
+                           | ((adv + adv2) << 19) | (1 << 26), 0)
+    return np.where(length > 0, single, 0).astype(np.int32)
+
+
+def kernel_tables(lut, hv, canon, slots):
+    """The kernel's tables, cut to the R table rows that ``slots`` use:
+    (skip [R, T11] for pass 2, pair [R, T11] for pass 1, huffval [R, 256],
+    canon [R, 15], slots [bpm, 3] as (component, DC row, AC row) into them),
+    all int32."""
+    rows = sorted({int(d) for d in slots[:, 1]}
+                  | {4 + int(a) for a in slots[:, 2]})
+    at = {r: i for i, r in enumerate(rows)}
+    skip = np.stack([skip_table(lut[r], r < 4) for r in rows])
+    pair = np.stack([pair_table(lut[r], r < 4) for r in rows])
+    kslots = np.array([(c, at[d], at[4 + a]) for c, d, a in slots], np.int32)
+    return skip, pair, hv[rows], canon[rows], kslots
+
+
 def slot_rows(plan) -> np.ndarray:
     """[bpm, 3] int32 per block slot of an MCU: (component, DC slot, AC slot)."""
     return np.array([(ci, plan.components[ci].dc_id, plan.components[ci].ac_id)
@@ -94,13 +183,19 @@ class LaneBatch:
     huffval: np.ndarray
     canon: np.ndarray
     slots: np.ndarray       # [bpm, 3]
+    skip: np.ndarray        # [R, T11] the kernel's tables (kernel_tables)
+    pair: np.ndarray        # [R, T11]
+    skip_hv: np.ndarray     # [R, 256]
+    skip_canon: np.ndarray  # [R, 15]
+    skip_slots: np.ndarray  # [bpm, 3]
     images: list            # per image: (first row, rows kept)
     total_rows: int
 
 
 def prepare_lane_batch(plans: list) -> LaneBatch:
     """Lay out a batch of plans as lanes. Raises ``ValueError`` unless every
-    image shares the first one's slot structure and Huffman tables."""
+    image shares the first one's slot structure and Huffman tables, and
+    for a segment of ``MAX_LANE_BYTES`` or more."""
     if not plans:
         raise ValueError("empty batch")
     p0 = plans[0]
@@ -118,6 +213,10 @@ def prepare_lane_batch(plans: list) -> LaneBatch:
     for p in plans:
         first = row
         for s in p.segments:
+            if s.byte_end - s.byte_start >= MAX_LANE_BYTES:
+                raise ValueError("restart segment of "
+                                 f"{s.byte_end - s.byte_start} bytes: the lane "
+                                 f"decoder takes < {MAX_LANE_BYTES}")
             starts.append(byte_base + s.byte_start)
             lens.append(s.byte_end - s.byte_start)
             nblk.append(s.mcu_count * bpm)
@@ -126,7 +225,11 @@ def prepare_lane_batch(plans: list) -> LaneBatch:
         images.append((first, min(row - first, p.total_blocks)))
         chunks.append(np.asarray(p.scan_data, np.uint8))
         byte_base += len(p.scan_data)
-    chunks.append(np.zeros(1, np.uint8))  # a valid address for empty lanes
+    # The kernel reads a lane's bytes as three aligned 4-byte words from a
+    # position clamped to the lane's end: 16 bytes of padding keep the last
+    # lane's reads inside the buffer.
+    chunks.append(np.zeros(16, np.uint8))
+    skip, pair, skip_hv, skip_canon, skip_slots = kernel_tables(*tables, slots)
     return LaneBatch(
         data=np.concatenate(chunks),
         lane_start=np.array(starts, np.int64),
@@ -134,14 +237,15 @@ def prepare_lane_batch(plans: list) -> LaneBatch:
         lane_nblk=np.array(nblk, np.int32),
         lane_out=np.array(outs, np.int64),
         lut11=tables[0], huffval=tables[1], canon=tables[2],
-        slots=slots, images=images,
-        total_rows=row)
+        slots=slots, skip=skip, pair=pair, skip_hv=skip_hv, skip_canon=skip_canon,
+        skip_slots=skip_slots, images=images, total_rows=row)
 
 
 def lane_tensors(batch: LaneBatch, device) -> dict:
     """The batch's arrays as tensors on ``device``, keyed by field name."""
     names = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
-             "lut11", "huffval", "canon", "slots")
+             "lut11", "huffval", "canon", "slots", "skip", "pair", "skip_hv",
+             "skip_canon", "skip_slots")
     return {n: torch.from_numpy(getattr(batch, n)).to(device) for n in names}
 
 
@@ -253,8 +357,9 @@ def _configure(lib) -> None:
     lib.jt_huffman_lanes.restype = ctypes.c_int
     lib.jt_huffman_lanes.argtypes = [
         vp, vp, vp, vp, vp, ctypes.c_int32,  # data, lane arrays, n_lanes
-        vp, vp, vp, vp, ctypes.c_int32,  # lut11, huffval, canon, slots, bpm
-        vp, vp, vp,  # coeffs, err, stream
+        vp, vp, vp, vp, vp,  # skip, pair, skip_hv, skip_canon, skip_slots
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,  # rows, bpm, total_rows
+        vp, vp, vp, vp,  # meta, coeffs, err, stream
     ]
 
 
@@ -264,22 +369,27 @@ def load_kernel():
 
 
 def decode_lanes_cuda(t: dict, n_lanes: int, total_rows: int):
-    """Launch K3 on the current stream. Same contract as
-    :func:`decode_lanes_plain`."""
+    """Launch K3's two passes on the current stream. Same contract as
+    :func:`decode_lanes_plain`. Every output element is written once, so
+    the outputs, and the per-block records the passes share (16 B a row),
+    are allocated uninitialised."""
     dev = t["data"].device
     for name, x in t.items():
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"K3 input {name} must be contiguous on {dev}")
     lib = load_kernel()
-    coeffs = torch.zeros((total_rows, 64), dtype=torch.int32, device=dev)
+    coeffs = torch.empty((total_rows, 64), dtype=torch.int32, device=dev)
+    meta = torch.empty((total_rows, 4), dtype=torch.int32, device=dev)
     err = torch.empty(n_lanes, dtype=torch.uint8, device=dev)
     rc = lib.jt_huffman_lanes(
         t["data"].data_ptr(), t["lane_start"].data_ptr(),
         t["lane_len"].data_ptr(), t["lane_nblk"].data_ptr(),
-        t["lane_out"].data_ptr(), n_lanes, t["lut11"].data_ptr(),
-        t["huffval"].data_ptr(), t["canon"].data_ptr(),
-        t["slots"].data_ptr(), t["slots"].shape[0], coeffs.data_ptr(),
-        err.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        t["lane_out"].data_ptr(), n_lanes, t["skip"].data_ptr(),
+        t["pair"].data_ptr(), t["skip_hv"].data_ptr(), t["skip_canon"].data_ptr(),
+        t["skip_slots"].data_ptr(), t["skip"].shape[0],
+        t["skip_slots"].shape[0], total_rows, meta.data_ptr(),
+        coeffs.data_ptr(), err.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
     LAUNCHES.add()

@@ -122,10 +122,12 @@ def _configure(lib) -> None:
     lib.jt_fused_plane_decode.argtypes = [
         ctypes.POINTER(vp), ctypes.POINTER(i64), ctypes.POINTER(i64),
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # planes, rows, strides, h, v
-        i32, i32, i32, i32, i32,  # n_comp, h_max, v_max, band_mcus, n_bands
-        vp, vp, vp,  # qtab, basis, out
+        i32, i32, i32, i32,  # n_comp, h_max, v_max, MCU rows of H_pad
+        vp, ctypes.POINTER(ctypes.c_float), vp,  # qtab, basis (host), out
         i64, i64, i64, i32, vp,  # batch, h_pad, w_pad, round_mode, stream
     ]
+    lib.jt_divide_green_check.restype = ctypes.c_int
+    lib.jt_divide_green_check.argtypes = [ctypes.c_uint32, ctypes.c_uint32, vp, vp]
 
 
 def load_kernel():
@@ -138,18 +140,21 @@ def fused_plane_decode_cuda(planes, qtabs, geom,
                             rounding: str = "truncate") -> torch.Tensor:
     """Launch K1 on the current stream. Same contract as
     :func:`fused_plane_decode_plain`; every tensor must be on one CUDA
-    device and contiguous."""
+    device and contiguous, and each plane 16-byte aligned (the kernel loads
+    a block row, eight int16, at a time)."""
     batch = _check_inputs(planes, qtabs, geom)
     mode = _rounding_mode(rounding)
     dev = planes[0].device
     for t in (*planes, qtabs):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("K1 inputs must be contiguous and on one device")
+    if any(p.data_ptr() % 16 for p in planes):
+        raise ValueError("K1 planes must start on a 16-byte boundary")
     lib = load_kernel()
     shapes = padded_plane_shapes(geom)
     n_comp = len(shapes)
     h_pad, w_pad = padded_size(geom)
-    basis = _basis(dev)
+    basis = np.ascontiguousarray(dct_basis_1d(), np.float32)
     out = torch.empty((batch, 3, h_pad, w_pad), dtype=torch.uint8, device=dev)
     ptrs = (ctypes.c_void_p * n_comp)(*[p.data_ptr() for p in planes])
     rows = (ctypes.c_int64 * n_comp)(*[s[0] for s in shapes])
@@ -159,12 +164,34 @@ def fused_plane_decode_cuda(planes, qtabs, geom,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.jt_fused_plane_decode(
         ptrs, rows, strides, hs, vs, n_comp, geom.h_max, geom.v_max,
-        band_mcus(geom), n_bands(geom), qtabs.data_ptr(), basis.data_ptr(),
-        out.data_ptr(), batch, h_pad, w_pad, mode, stream)
+        h_pad // (8 * geom.v_max), qtabs.data_ptr(),
+        basis.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.data_ptr(),
+        batch, h_pad, w_pad, mode, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     LAUNCHES.add()
     return out
+
+
+def division_mismatches(lo: float = 2.0**-100, hi: float = 2.0**100,
+                        device="cuda") -> tuple[int, float, float]:
+    """On the card, every float x with lo <= |x| <= hi (powers of two) for
+    which K1's fast x / 0.587 path differs from IEEE division (``__fdiv_rn``,
+    the twin's ``/``): (count, smallest and largest such |x|, 0.0 if none).
+    K1 takes the fast path only for x = 0 and 2^-100 <= |x| <= 2^100."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the division check runs on a CUDA device, not {dev}")
+    bits = lambda x: int(np.array(x, np.float32).view(np.uint32))  # noqa: E731
+    out = torch.tensor([0, 0xFFFFFFFF], dtype=torch.int64, device=dev)
+    rc = load_kernel().jt_divide_green_check(
+        bits(lo), bits(hi), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"division check launch failed: CUDA error {rc}")
+    count, packed = out.cpu().tolist()
+    lo_hi = np.array([packed & 0xFFFFFFFF, packed >> 32], np.uint32).view(np.float32)
+    return count, (float(lo_hi[0]) if count else 0.0), (float(lo_hi[1]) if count else 0.0)
 
 
 def fused_plane_decode(planes, qtabs, geom,

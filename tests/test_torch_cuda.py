@@ -13,12 +13,20 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes, encode_rgb_device
+from jpeg_tpu_torch import (
+    BatchedCorpusDecoder,
+    decode_bytes,
+    encode_rgb,
+    encode_rgb_device,
+)
 from jpeg_tpu_torch.entropy import device_huffman as k3
 from jpeg_tpu_torch.entropy import device_kernel as k4
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models import encoder
-from jpeg_tpu_torch.models.decoder import PipelineGeometry
+from jpeg_tpu_torch.models.decoder import (
+    PipelineGeometry,
+    coefficient_planes_from_blocks,
+)
 from jpeg_tpu_torch.ops import fused_encode as k2
 from jpeg_tpu_torch.ops import fused_plane as k1
 from jpeg_tpu_torch.ops import idct_only as k56
@@ -58,6 +66,59 @@ def test_k1_kernel_equals_plain(cuda, name, rounding):
     assert k1.LAUNCHES.value == before + 1
     want = k1.fused_plane_decode_plain(planes, qt, geom, rounding)
     assert torch.equal(got, want)
+
+
+# Every sampling K1 takes: luma (h, v) factors over 1x1 chroma, and gray.
+K1_SAMPLINGS = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2),
+                "4x1": (4, 1), "4x4": (4, 4), "gray": None}
+
+
+@pytest.mark.parametrize("rounding", ["truncate", "round"])
+@pytest.mark.parametrize("sampling", K1_SAMPLINGS)
+def test_k1_kernel_equals_plain_every_sampling(cuda, sampling, rounding):
+    """Seeded images encoded by the port at each sampling (two per batch,
+    an odd size so the padded tiles and bands are partly empty)."""
+    sub = K1_SAMPLINGS[sampling]
+    plans = []
+    for seed in (1, 2):
+        img = _image(520, 200, seed)
+        data = (encode_rgb(img[..., 0], quality=90, grayscale=True) if sub is None
+                else encode_rgb(img, quality=90, subsampling=sub))
+        plans.append(parse_jpeg(data))
+    geom = PipelineGeometry.of(plans[0])
+    host = [native_decode_planes(p) for p in plans]
+    planes = [torch.from_numpy(np.stack([h[c] for h in host])).to(cuda)
+              for c in range(len(host[0]))]
+    qt = torch.from_numpy(np.stack(
+        [k1.plan_quant_patterns(p, geom) for p in plans])).to(cuda)
+    before = k1.LAUNCHES.value
+    got = k1.fused_plane_decode(planes, qt, geom, rounding)
+    assert k1.LAUNCHES.value == before + 1
+    assert torch.equal(got, k1.fused_plane_decode_plain(planes, qt, geom, rounding))
+
+
+def test_k1_fast_division_matches_ieee(cuda):
+    """K1 divides by 0.587 with one reciprocal product and one correction
+    where |x| is 0 or in [2^-100, 2^100]: there it gives IEEE division's
+    bits for every float. Among denormals it does not, hence the guard."""
+    assert k1.division_mismatches(device=cuda)[0] == 0
+    assert k1.division_mismatches(2.0**-149, 2.0**-127, device=cuda)[0] > 0
+
+
+def test_k3_kernel_equals_plain_and_cpp_on_4k_frame(cuda):
+    """One 3840x2160 fixture frame (135 lanes): every row and the err vector
+    equal the plain twin's; as planes, the C++ decoder's."""
+    plan = parse_jpeg(_read("synth_3840x2160_s0_q85_rst1.jpg"))
+    batch = k3.prepare_lane_batch([plan])
+    lanes = k3.lane_tensors(batch, cuda)
+    n = len(batch.lane_start)
+    ck, ek = k3.decode_lanes(lanes, n, batch.total_rows)
+    cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
+    assert not ek.any() and torch.equal(ek, ep)
+    assert torch.equal(ck, cp)
+    planes = coefficient_planes_from_blocks(ck, PipelineGeometry.of(plan))
+    for got, want in zip(planes, native_decode_planes(plan)):
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("name", [SMALL[0], SMALL[2]])

@@ -133,3 +133,16 @@ def test_wrapper_checks_inputs():
         fused_plane_decode(planes, qt, geom, rounding="nearest")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_plane_decode([p.to("meta") for p in planes], qt.to("meta"), geom)
+
+
+@pytest.mark.parametrize("v", range(8))
+def test_basis_mirror_symmetry_is_exact_in_float32(v):
+    """K1 computes A[v][y] * F once for outputs y and 7 - y, negated for
+    odd v: exact only because the float32 basis row is mirror-symmetric bit
+    for bit, and equal to the JAX package's."""
+    from jpeg_tpu.ops.idct import dct_basis_1d as ref_basis
+    from jpeg_tpu_torch.ops.idct import dct_basis_1d
+
+    a = dct_basis_1d().astype(np.float32)[v]
+    np.testing.assert_array_equal(a[::-1], a if v % 2 == 0 else -a)
+    np.testing.assert_array_equal(a, ref_basis().astype(np.float32)[v])
