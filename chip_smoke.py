@@ -5,10 +5,10 @@
 
 Builds the C++ entropy runtime, the C++ entropy encoder and the five CUDA
 libraries (K1-K6) from this checkout (all at once), checks each kernel
-against its plain PyTorch version at the shapes its path gives it (K1 on
-every sampling it takes, K3 on corrupt streams and eight 4K frames), times
-K1 at 8 and 62 4K frames and K3 at 1, 8 and 32, each beside its bound,
-then drives four paths:
+against its plain PyTorch version at the shapes its path gives it (K1 and
+K2 on every sampling they take, K3 and K4 on corrupt streams and eight 4K
+frames), times K1 at 8 and 62 4K frames, K3 at 1, 8 and 32, K4 and K2 at
+1 and 8, each beside its bound, then drives four paths:
 
 - the hybrid host + device corpus decode of 64 images (62 of them
   3840x2160 frames) through ``BatchedCorpusDecoder(hybrid_device=True)``
@@ -40,6 +40,13 @@ one (K5 and K6: cuDNN convolution + pixel shuffle), timed and never used.
 
 Output: check lines, then the ``nvidia-smi`` name and power limit, one JSON
 line describing the kernels, and last a JSON result line.
+
+    python3 chip_smoke.py --times [--package DIR]
+
+only builds K2, K3 and K4 and times them at those shapes (no checks, no
+result line), from this checkout's package or from the ``jpeg_tpu_torch`` of
+another checkout ``DIR``: two versions of a kernel are compared by running
+both on the same card, one after the other, in turns.
 """
 
 from __future__ import annotations
@@ -116,10 +123,13 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     return float("inf") if mse == 0 else 10.0 * np.log10(255.0**2 / mse)
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1,
+            queued: bool = False) -> float:
     """Median milliseconds of ``fn()`` on the current stream, CUDA events
     around ``inner`` calls in a row (so short kernels queue up behind each
-    other and the host's launch overhead hides)."""
+    other and the host's launch overhead hides). ``queued`` first keeps the
+    card busy for ~20 ms, so that every call is enqueued before the first
+    event is reached and the wrapper's host time is not in the result."""
     import torch
 
     for _ in range(warmup):
@@ -128,6 +138,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(40_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -351,7 +364,8 @@ def run() -> list[dict]:
               f"events); {share(ms, bnd)}", flush=True)
         del t
     k3_ms, k3_bnd = k3_time[BATCH]
-    check_k4_4k(plans4k, host_planes, geom, ck, batch, k3_ms, dev)
+    k4_8, k4_8_bnd = check_k4_4k(plans4k, host_planes, geom, ck, batch, k3_ms,
+                                 dev)
     del ck, lanes
 
     # 5. The main path: hybrid corpus decode.
@@ -416,7 +430,7 @@ def run() -> list[dict]:
     # 6.-8. The encoder: K2 against its plain version, the encode path, and
     #    encode -> decode.
     frames = [sources[i % 2] for i in range(BATCH)]
-    k2_err, k2_ms, k2_plain_ms, k2_bnd = check_k2(frames, dev)
+    k2_rec = check_k2(frames, dev)
     streams, k2_launches = encode_path(frames)
     k1_rt_launches, k3_rt_launches = round_trip(streams, sources)
 
@@ -441,8 +455,7 @@ def run() -> list[dict]:
         {"name": "K2 fused_encode", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_encode.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:410",
-         "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, **k2_bnd, "library_ms": None},
+         "launches": k2_launches, **k2_rec, "library_ms": None},
         {"name": "K3 huffman_lanes", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
@@ -456,7 +469,9 @@ def run() -> list[dict]:
          "source": "jpeg_tpu_torch/csrc/huffman_words.cu",
          "replaces": "jpeg_tpu/entropy/device_kernel.py:251",
          "launches": k4_launches, "max_abs_err": max(k4_err, k4_4k_err),
-         "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bnd, "library_ms": None},
+         "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bnd, "library_ms": None,
+         "frames": 1, "ms_8_frames": k4_8,
+         "bound_ms_8_frames": k4_8_bnd["bound_ms"]},
         {"name": "K5 idct_only", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:362", **k5},
@@ -497,11 +512,19 @@ def check_k4_small(dev) -> int:
     return worst
 
 
+def k4_bound(args, max_mcus: int, bpm: int) -> dict:
+    """K4's byte bound: its arguments read once, out [max_mcus, bpm, 64, S]
+    i32 and err [S] written once."""
+    lanes = args[0].shape[1]
+    return bound(nbytes(*args) + max_mcus * bpm * 64 * lanes * 4 + lanes)
+
+
 def check_k4_4k(plans, host_planes, geom, k3_coeffs, k3_batch, k3_ms,
-                dev) -> None:
+                dev) -> tuple[float, dict]:
     """K4's batch tier over the 4K frames in one launch: no lane flagged,
     coefficients equal K3's and, as planes, the C++ decoder's. Times K4 at
-    all frames and at one, beside K3 at the same frames."""
+    all frames and at one, beside K3 at the same frames. Returns (ms,
+    bound) at all frames."""
     import torch
 
     from jpeg_tpu_torch.entropy import device_huffman as k3
@@ -524,16 +547,19 @@ def check_k4_4k(plans, host_planes, geom, k3_coeffs, k3_batch, k3_ms,
     check(True, f"K4 on {len(plans)} 4K frames == K3 == C++ "
           "native_decode_planes, bit for bit")
     del got, err
-    run_n, args_n, _, s_n, _ = k4.kernel_runner_batch(plans, device=dev)
+    run_n, args_n, mm_n, s_n, _ = k4.kernel_runner_batch(plans, device=dev)
     run_1, args_1, _, s_1 = k4.kernel_runner(plans[0], device=dev)
     one = k3.prepare_lane_batch(plans[:1])
     lanes_1 = k3.lane_tensors(one, dev)
-    ms_n = cuda_ms(lambda: run_n(*args_n), 5, 1)
-    ms_1 = cuda_ms(lambda: run_1(*args_1), 5, 1)
+    ms_n = cuda_ms(lambda: run_n(*args_n), 5, 1, queued=True)
+    ms_1 = cuda_ms(lambda: run_1(*args_1), 5, 1, queued=True)
     k3_1 = cuda_ms(lambda: k3.decode_lanes(lanes_1, s_1, one.total_rows), 5, 1)
-    print(f"K4 {len(plans)}x4K ({s_n} lanes): {ms_n:.3f} ms; 1x4K ({s_1} "
-          f"lanes): {ms_1:.3f} ms. K3 at the same frames: {k3_ms:.3f} ms; "
-          f"{k3_1:.3f} ms (median, CUDA events)", flush=True)
+    bnd_n = k4_bound(args_n, mm_n, plans[0].blocks_per_mcu)
+    print(f"K4 {len(plans)}x4K ({s_n} lanes): {ms_n:.3f} ms, "
+          f"{share(ms_n, bnd_n)}; 1x4K ({s_1} lanes): {ms_1:.3f} ms. K3 at the "
+          f"same frames: {k3_ms:.3f} ms; {k3_1:.3f} ms (median, CUDA events)",
+          flush=True)
+    return ms_n, bnd_n
 
 
 def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float, dict]:
@@ -568,9 +594,9 @@ def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float, dict]:
           and torch.equal(out_k, out_p),
           f"K4 vs plain on one 4K frame ({n} lanes, out {list(out_k.shape)}): "
           "no lane flagged, every element bit-identical")
-    bnd = bound(nbytes(*args, out_k, err_k))
+    bnd = k4_bound(args, max_mcus, plan.blocks_per_mcu)
     del out_k, out_p
-    ms = cuda_ms(lambda: run(*args), 5, 1)
+    ms = cuda_ms(lambda: run(*args), 5, 1, queued=True)
     print(f"K4 1x4K ({n} lanes): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
           f"(CUDA events); {share(ms, bnd)}", flush=True)
 
@@ -684,22 +710,41 @@ def idct_roofline(dev) -> tuple[dict, dict]:
     return records[0], records[1]
 
 
-def check_k2(frames, dev) -> tuple[int, float, float, dict]:
-    """K2 against its plain version: the 8-frame 4K 4:2:0 batch (one
-    launch for all, as ``encode_batch_device`` takes it), its first frame
-    alone (the shape ``encode_rgb_device`` launches), a 512x384 gray image
-    and a 512x384 4:4:4 image. Returns (max abs err, kernel ms, plain ms,
-    bound) at the 8-frame batch."""
+def k2_inputs(imgs, dev, **kw):
+    """(geometry, rgb [B, n_comp, H_pad, W_pad] u8, reciprocal tables
+    [B, n_comp, 64] f32 on ``dev``) of K2 for a batch of equal-sized images."""
     import torch
 
     from jpeg_tpu_torch.models.encoder import device_inputs
-    from jpeg_tpu_torch.ops import fused_encode as k2
 
-    def inputs(imgs, **kw):
-        parts = [device_inputs(im, QUALITY, **kw) for im in imgs]
-        return (parts[0][0],
-                torch.from_numpy(np.stack([p[1] for p in parts])).to(dev),
-                torch.from_numpy(np.stack([p[2] for p in parts])).to(dev))
+    parts = [device_inputs(im, QUALITY, **kw) for im in imgs]
+    return (parts[0][0],
+            torch.from_numpy(np.stack([p[1] for p in parts])).to(dev),
+            torch.from_numpy(np.stack([p[2] for p in parts])).to(dev))
+
+
+def k2_bound(rgb, iq, geom) -> dict:
+    """K2's bound from its shapes: rgb and tables read, int16 planes written;
+    two 1-D passes and the quantiser per block, 15 colour operations a pixel."""
+    from jpeg_tpu_torch.ops.fused_plane import padded_plane_shapes
+
+    coeffs = rgb.shape[0] * sum(r * c for r, c in padded_plane_shapes(geom))
+    return bound(nbytes(rgb, iq) + 2 * coeffs,
+                 coeffs / 64 * OPS_PER_BLOCK + 15 * rgb[:, 0].numel())
+
+
+def check_k2(frames, dev) -> dict:
+    """K2 against its plain version: every sampling it takes (the seven K1
+    is held on, two seeded 520x200 images each), a 512x384 gray image, a
+    512x384 4:4:4 image, the 8-frame 4K 4:2:0 batch (one launch for all, as
+    ``encode_batch_device`` takes it) and its first frame alone (the shape
+    ``encode_rgb_device`` launches). Returns the measured fields of K2's
+    record: times and bounds at the 8-frame batch and at one frame."""
+    import torch
+
+    from jpeg_tpu_torch.models.decoder import PipelineGeometry
+    from jpeg_tpu_torch.ops import fused_encode as k2
+    from jpeg_tpu_torch.ops.fused_plane import padded_size
 
     def compare(label, geom, rgb, iq) -> int:
         got = k2.fused_plane_encode(rgb, iq, geom)
@@ -710,28 +755,117 @@ def check_k2(frames, dev) -> tuple[int, float, float, dict]:
               f"K2 vs plain, {label}: every plane identical (max abs err {err})")
         return err
 
+    err = 0
+    for name, sub in K1_SAMPLINGS.items():
+        imgs = [synthetic_image(520, 200, seed=seed) for seed in (5, 6)]
+        if sub is None:
+            args = k2_inputs([im[..., 0] for im in imgs], dev, grayscale=True)
+        else:
+            args = k2_inputs(imgs, dev, subsampling=sub)
+        err = max(err, compare(f"{name} 2x520x200", *args))
+    # A geometry off the usual ones (luma at half height, Cb and Cr unlike
+    # each other), which takes K2's general kernel.
+    odd = PipelineGeometry(width=520, height=200, mcus_x=33, mcus_y=13,
+                           h_max=2, v_max=2, sampling=((2, 1), (1, 2), (1, 1)))
+    rng = np.random.default_rng(8)
+    err = max(err, compare(
+        "2x520x200 sampling (2,1) (1,2) (1,1)", odd,
+        torch.from_numpy(rng.integers(0, 256, (2, 3, *padded_size(odd)),
+                                      dtype=np.uint8)).to(dev),
+        torch.from_numpy((1.0 / rng.integers(1, 64, (2, 3, 64)))
+                         .astype(np.float32)).to(dev)))
     gray = synthetic_image(512, 384, seed=4)[..., 0]
-    err = compare("512x384 gray", *inputs([gray], grayscale=True))
-    err = max(err, compare("512x384 4:4:4", *inputs(
-        [synthetic_image(512, 384, seed=2)], subsampling=(1, 1))))
-    geom, rgb, iq = inputs(frames, subsampling=(2, 2))
+    err = max(err, compare("512x384 gray", *k2_inputs([gray], dev,
+                                                      grayscale=True)))
+    err = max(err, compare("512x384 4:4:4", *k2_inputs(
+        [synthetic_image(512, 384, seed=2)], dev, subsampling=(1, 1))))
+    geom, rgb, iq = k2_inputs(frames, dev, subsampling=(2, 2))
     size = f"{geom.width}x{geom.height}"
     err = max(err, compare(f"{len(frames)}x{size} 4:2:0", geom, rgb, iq))
     err = max(err, compare(f"1x{size} 4:2:0", geom, rgb[:1], iq[:1]))
-    ms = cuda_ms(lambda: k2.fused_plane_encode(rgb, iq, geom), 10, 2)
-    out = k2.fused_plane_encode(rgb, iq, geom)
-    bnd = bound(nbytes(rgb, iq, *out), sum(p.numel() for p in out) / 64
-                * OPS_PER_BLOCK + 15 * rgb[:, 0].numel())
-    del out
+    ms = cuda_ms(lambda: k2.fused_plane_encode(rgb, iq, geom), 10, 2,
+                 inner=10, queued=True)
+    bnd = k2_bound(rgb, iq, geom)
     plain_ms = cuda_ms(lambda: k2.fused_plane_encode_plain(rgb, iq, geom), 3, 1)
-    ms1 = cuda_ms(lambda: k2.fused_plane_encode(rgb[:1], iq[:1], geom), 10, 2)
+    ms1 = cuda_ms(lambda: k2.fused_plane_encode(rgb[:1], iq[:1], geom), 10, 2,
+                  inner=20, queued=True)
+    bnd1 = k2_bound(rgb[:1], iq[:1], geom)
     plain1 = cuda_ms(lambda: k2.fused_plane_encode_plain(rgb[:1], iq[:1], geom),
                      3, 1)
-    print(f"K2 {len(frames)}x{size} 4:2:0: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; 1x{size}: kernel {ms1:.3f} ms, plain "
-          f"{plain1:.3f} ms (median, CUDA events); at {len(frames)} frames "
-          f"{share(ms, bnd)}", flush=True)
-    return err, ms, plain_ms, bnd
+    print(f"K2 {len(frames)}x{size} 4:2:0: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, {share(ms, bnd)}; 1x{size}: kernel {ms1:.4f} "
+          f"ms, plain {plain1:.3f} ms, {share(ms1, bnd1)} (median, CUDA "
+          "events, launches queued in a row)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "frames": len(frames), "ms_1_frame": ms1,
+            "plain_ms_1_frame": plain1, "bound_ms_1_frame": bnd1["bound_ms"]}
+
+
+def kernel_times(package_dir: str) -> None:
+    """``--times``: K2, K3 and K4 of the ``jpeg_tpu_torch`` under
+    ``package_dir``, built and timed alone at the smoke's shapes (1 and 8 4K
+    frames; K3 also 32), launches queued in a row behind a busy card so the
+    wrappers' host time stays out; then the two passes of K3 and K4 apart.
+    Prints one line per time."""
+    sys.path.insert(0, package_dir)
+    import torch
+
+    import jpeg_tpu_torch
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.entropy import device_kernel as k4
+    from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.ops import fused_encode as k2
+
+    dev = torch.device("cuda")
+    print(f"package: {os.path.dirname(os.path.abspath(jpeg_tpu_torch.__file__))}")
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(m.load_kernel) for m in (k2, k3, k4)]:
+            fut.result()
+    frames = [synthetic_image(3840, 2160, seed=i % 2) for i in range(BATCH)]
+    geom, rgb, iq = k2_inputs(frames, dev, subsampling=(2, 2))
+    for n in (1, BATCH):
+        ms = cuda_ms(lambda: k2.fused_plane_encode(rgb[:n], iq[:n], geom),
+                     10, 2, inner=20, queued=True)
+        print(f"times K2 {n}x4K: {ms:.4f} ms", flush=True)
+    del rgb
+    plans = [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(max(K3_FRAMES))]
+    for n in K3_FRAMES:
+        b = k3.prepare_lane_batch(plans[:n])
+        t = k3.lane_tensors(b, dev)
+        m = len(b.lane_start)
+        ms = cuda_ms(lambda: k3.decode_lanes(t, m, b.total_rows), 10, 2,
+                     inner=5, queued=True)
+        print(f"times K3 {n}x4K: {ms:.4f} ms", flush=True)
+    run_1, args_1, _, _ = k4.kernel_runner(plans[0], device=dev)
+    run_n, args_n, _, _, _ = k4.kernel_runner_batch(plans[:BATCH], device=dev)
+    for n, run, args in ((1, run_1, args_1), (BATCH, run_n, args_n)):
+        ms = cuda_ms(lambda: run(*args), 10, 2, inner=2, queued=True)
+        print(f"times K4 {n}x4K: {ms:.4f} ms", flush=True)
+    # The two passes of K3 and K4 apart, from a profiler trace of five
+    # launches each (device time by kernel name).
+    from torch.profiler import ProfilerActivity, profile
+
+    one = k3.prepare_lane_batch(plans[:1])
+    lanes_1 = k3.lane_tensors(one, dev)
+    for label, fn in (
+            ("K3 1x4K", lambda: k3.decode_lanes(lanes_1, len(one.lane_start),
+                                                one.total_rows)),
+            ("K4 1x4K", lambda: run_1(*args_1)),
+            (f"K4 {BATCH}x4K", lambda: run_n(*args_n))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        found = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+            for name in ("boundary_pass", "block_pass", "huffman_words_kernel"):
+                if name in ev.key and t and ev.count:
+                    found[name] = t / ev.count / 1e3
+        print(f"passes {label}: " + (", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(found.items()))
+            or "not measured (the profiler saw no device time)"), flush=True)
 
 
 def encode_path(frames) -> tuple[list[bytes], int]:
@@ -854,6 +988,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if "--times" in sys.argv[1:]:
+        at = sys.argv.index("--package") + 1 if "--package" in sys.argv else 0
+        kernel_times(os.path.abspath(sys.argv[at]) if at else REPO)
+        return 0
     sys.path.insert(0, REPO)
     try:
         import jpeg_tpu_torch  # noqa: F401

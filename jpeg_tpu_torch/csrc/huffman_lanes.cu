@@ -23,6 +23,10 @@
 // order); err [lanes] u8. Every output byte is written exactly once, so the
 // caller allocates both uninitialised.
 //
+// The pass bodies (walk_lane, decode_block) and the table formats live in
+// huffman_common.cuh, shared with K4; this file holds the byte-stream reader,
+// the two kernels' frames and the launcher.
+//
 // Pass 1, the boundary walk (boundary_pass): one thread per lane. It decodes
 // no coefficient values. Its two loops (blocks, AC symbols) are one loop
 // over the state (slot in the MCU, coefficient index k), so the lanes of a
@@ -51,106 +55,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "huffman_common.cuh"
+
 namespace {
 
-constexpr int kT11 = 2048;        // skip entries per table row (11-bit peek)
-constexpr int kMaxRows = 8;       // table rows: at most 4 DC + 4 AC
-constexpr int kMaxSlots = 10;     // blocks per MCU (JPEG limit)
-constexpr int kWalkThreads = 128;  // pass 1: four warps per block
+using namespace huffman;
+
 constexpr int kRowThreads = 256;  // pass 2: eight warps per block
 constexpr int kStage = 68;        // staging row stride in i32 (16-byte rows)
 constexpr int kWarps = kRowThreads / 32;
 
-// Pass 2's skip entry (i32): bits 0-5 bits consumed (code + magnitude),
-// 8-12 code length, 16-20 magnitude bits, 24-30 advance of k (DC 1, EOB 64,
-// else run + 1, ZRL 16). Pass 1's pair entry: bits 0-5 bits consumed, 6-12
-// advance, 27-31 a DC code's length; in an AC row, where the next whole
-// symbol also lies within the 11-bit peek, bits 13-18 and 19-25 the bits
-// and advance of both, bit 26 set. In both tables 0 means "not an 11-bit
-// code": walk canonically (device_huffman.skip_entries, pair_table).
-// (magnitude bits, advance of k) of a symbol: a DC symbol is its size and
-// advances 1; an AC symbol's size is its low nibble, it advances run + 1,
-// and EOB ends the block.
-__device__ __forceinline__ int2 size_advance(int sym, bool dc) {
-  return dc ? make_int2(sym, 1)
-            : make_int2(sym & 0xF, sym == 0 ? 64 : (sym >> 4) + 1);
-}
-
-__device__ __forceinline__ uint32_t make_entry(int length, int sym, bool dc) {
-  const int2 sa = size_advance(sym, dc);
-  return length == 0 ? 0u
-                     : static_cast<uint32_t>((length + sa.x) | (length << 8) |
-                                             (sa.x << 16) | (sa.y << 24));
-}
-
-__device__ __forceinline__ uint32_t make_pair_entry(int length, int sym,
-                                                    bool dc) {
-  const int2 sa = size_advance(sym, dc);
-  return length == 0 ? 0u
-                     : static_cast<uint32_t>(length + sa.x) | (sa.y << 6) |
-                           (dc ? static_cast<uint32_t>(length) << 27 : 0u);
-}
-
-struct Tables {
-  const uint8_t* hv;      // [n_rows, 256]
-  const int32_t* canon;   // [n_rows, 15]
-  const int* dcrow;       // per slot: DC table row,
-  const int* acrow;       //           AC table row
-
-  // The code longer than 11 bits at the top of `peek`: its length (0 for
-  // an invalid prefix) and symbol.
-  __device__ __forceinline__ int walk(int row, uint32_t peek, int* sym) const {
-    const int32_t p16 = static_cast<int32_t>(peek >> 16);
-    const int32_t* cn = canon + row * 15;
-    for (int i = 0; i < 5; ++i) {
-      if (cn[5 + i] < 0) continue;
-      const int32_t code = p16 >> (4 - i);  // 16 - (12 + i)
-      if (code >= cn[i] && code <= cn[5 + i]) {
-        *sym = hv[row * 256 + ((cn[10 + i] + code - cn[i]) & 0xFF)];
-        return 12 + i;
-      }
-    }
-    return 0;
-  }
-};
-
-// Shared-memory layout of both passes: the skip rows, then the small tables.
-struct SharedTables {
-  uint8_t hv[kMaxRows * 256];
-  int32_t canon[kMaxRows * 15];
-  int comp[kMaxSlots], dcrow[kMaxSlots], acrow[kMaxSlots];
-};
-
-__device__ Tables load_tables(uint32_t* s_skip, SharedTables* st,
-                              const int32_t* __restrict__ skip,
-                              const int32_t* __restrict__ hv,
-                              const int32_t* __restrict__ canon,
-                              const int32_t* __restrict__ slots, int n_rows,
-                              int bpm) {
-  const int4* src = reinterpret_cast<const int4*>(skip);
-  int4* dst = reinterpret_cast<int4*>(s_skip);
-  for (int i = threadIdx.x; i < n_rows * kT11 / 4; i += blockDim.x)
-    dst[i] = __ldg(src + i);
-  for (int i = threadIdx.x; i < n_rows * 256; i += blockDim.x)
-    st->hv[i] = static_cast<uint8_t>(hv[i]);
-  for (int i = threadIdx.x; i < n_rows * 15; i += blockDim.x)
-    st->canon[i] = canon[i];
-  for (int i = threadIdx.x; i < bpm; i += blockDim.x) {
-    st->comp[i] = slots[3 * i];
-    st->dcrow[i] = slots[3 * i + 1];
-    st->acrow[i] = slots[3 * i + 2];
-  }
-  __syncthreads();
-  return Tables{st->hv, st->canon, st->dcrow, st->acrow};
-}
-
-// A lane's bits, left-aligned in a 64-bit buffer. A step is:
-//   idx = top11();  // the next table index
-//   refill();       // below 43 bits: top up to 56-63 bits from the bytes
-//                   // loaded at the last refill, and load the next ones
-// A symbol takes at most 32 bits, so >= 11 bits are left after it: the
-// index never waits for the refill, and a refill reads loads issued at an
-// earlier one.
+// A lane's bits, left-aligned in a 64-bit buffer (the reader interface of
+// huffman_common.cuh). A refill, below 43 bits, tops up to 56-63 bits from
+// the bytes loaded at the last refill and loads the next ones.
 struct Reader {
   const uint8_t* p;
   int len;       // segment bytes; past them the stream reads 0xAA
@@ -210,38 +127,6 @@ struct Reader {
     cnt -= n;
   }
   __device__ __forceinline__ int consumed_bits() const { return pos * 8 - cnt; }
-
-  // One step up to the table index: the index, then the refill.
-  __device__ __forceinline__ uint32_t step() {
-    const uint32_t idx = top11();
-    refill();
-    return idx;
-  }
-};
-
-// The `nbits` magnitude bits after a `length`-bit code at the top of
-// `buf`, sign-extended per Table F.2 (0 when there are none).
-__device__ __forceinline__ int32_t magnitude(uint64_t buf, int length,
-                                             int nbits) {
-  const uint32_t top = static_cast<uint32_t>((buf << length) >> 32);
-  const int32_t raw_bits = static_cast<int32_t>((top >> 1) >> (31 - nbits));
-  const int32_t base = (1 << nbits) >> 1;
-  return raw_bits < base ? raw_bits - 2 * base + 1 : raw_bits;
-}
-
-// A skip entry from shared memory by its shared-space byte address (kept in
-// a register, so the loops do not rebuild a generic address each step).
-__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-// Per slot, in shared memory for pass 1: the shared-space addresses of its
-// AC table row and of the next slot's DC row, and its component.
-struct SlotDesc {
-  uint32_t ac_row, next_dc_row;
-  int comp, pad;
 };
 
 __global__ void __launch_bounds__(kWalkThreads)
@@ -260,16 +145,9 @@ boundary_pass(const uint8_t* __restrict__ data,
   __shared__ SharedTables st;
   const Tables t = load_tables(s_skip, &st, pair, hv, canon, slots, n_rows, bpm);
   __shared__ SlotDesc s_desc[kMaxSlots];
-  __shared__ int32_t s_pred[4 * kWalkThreads];  // DC predictor per comp, lane
+  __shared__ int32_t s_pred[4 * kWalkThreads];
   const uint32_t tab = static_cast<uint32_t>(__cvta_generic_to_shared(s_skip));
-  constexpr uint32_t kRowBytes = 4 * kT11;
-  for (int i = threadIdx.x; i < bpm; i += blockDim.x) {
-    const int nxt = i + 1 == bpm ? 0 : i + 1;
-    s_desc[i] = SlotDesc{tab + kRowBytes * st.acrow[i],
-                         tab + kRowBytes * st.dcrow[nxt], st.comp[i], 0};
-  }
-  for (int i = threadIdx.x; i < 4 * kWalkThreads; i += blockDim.x) s_pred[i] = 0;
-  __syncthreads();
+  init_walk(s_desc, s_pred, st, tab, bpm);
 
   const int in_warp = threadIdx.x & 31;
   const int lane =
@@ -280,51 +158,10 @@ boundary_pass(const uint8_t* __restrict__ data,
   br.start(data + lane_start[lane], lane_len[lane], 0);
   const int nblk = lane_nblk[lane];
   int4* rec = meta + lane_out[lane];
-  int blk = 0, slot = 0, k = 0;
-  SlotDesc d = s_desc[0];
-  uint32_t row_addr = tab + kRowBytes * st.dcrow[0];  // table of this symbol
-  int32_t* pred_of = s_pred + threadIdx.x;
-  bool bad = false;
-  while (blk < nblk) {
-    const uint32_t idx = br.step();
-    uint32_t e = lds32(row_addr + 4 * idx);
-    const bool dc = k == 0;
-    if (e == 0) {
-      int sym = 0;
-      const int length = t.walk((row_addr - tab) / kRowBytes, br.peek32(), &sym);
-      e = make_pair_entry(length, sym, dc);
-    }
-    // The serial chain first: consume one symbol or two, advance k, pick
-    // the next table row. Two only if the first leaves the block open. An
-    // invalid prefix (e == 0) consumes nothing and advances nothing.
-    const uint64_t bits = br.buf;
-    const int start = br.consumed_bits();
-    const int blk0 = blk, slot0 = slot, comp = d.comp;
-    const int adv1 = (e >> 6) & 0x7F;
-    const bool two = ((e >> 26) & 1) && k + adv1 < 64;
-    br.consume(two ? (e >> 13) & 0x3F : e & 0x3F);
-    k += two ? static_cast<int>((e >> 19) & 0x7F) : adv1;
-    const bool next = k >= 64;
-    k = next ? 0 : k;
-    row_addr = next ? d.next_dc_row : d.ac_row;
-    blk += next;
-    slot = next ? (slot + 1 == bpm ? 0 : slot + 1) : slot;
-    d = s_desc[slot];
-    // Then, on a DC symbol, the prediction and the block's record.
-    if (dc) {
-      int32_t* pp = pred_of + comp * kWalkThreads;
-      const int length = e >> 27;
-      const int32_t diff = magnitude(bits, length, (e & 0x3F) - length);
-      const int32_t pred = static_cast<int32_t>(
-          static_cast<uint32_t>(*pp) + static_cast<uint32_t>(diff));
-      *pp = pred;
-      rec[blk0] = make_int4(start, pred, lane, slot0);
-    }
-    if (e == 0) {
-      bad = true;
-      break;
-    }
-  }
+  bool bad;
+  const int blk = walk_lane(br, t, s_desc, s_pred, tab, st.dcrow[0], nblk, bpm,
+                            lane, [rec](int b) { return rec + b; }, &bad);
+  // Rows after a lane's error block decode to zeros.
   for (int b = blk + 1; b < nblk; ++b) rec[b] = make_int4(0, 0, lane, -1);
   const int64_t bitend = static_cast<int64_t>(br.len) * 8;
   err_out[lane] = (bad || br.consumed_bits() > bitend + 8) ? 1 : 0;
@@ -349,6 +186,7 @@ block_pass(const uint8_t* __restrict__ data,
   int4* stage4 = reinterpret_cast<int4*>(stage);
   const int4 zero = make_int4(0, 0, 0, 0);
   const int64_t n_chunks = (total_rows + 31) / 32;
+  const uint32_t tab = static_cast<uint32_t>(__cvta_generic_to_shared(s_skip));
 
   for (int64_t chunk = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
        chunk < n_chunks;
@@ -364,39 +202,10 @@ block_pass(const uint8_t* __restrict__ data,
     const int64_t row = row0 + tid;
     const int4 m = row < total_rows ? meta[row] : make_int4(0, 0, 0, -1);
     if (m.w >= 0) {
-      int32_t* out = stage + tid * kStage;
       Reader br;
       br.start(data + lane_start[m.z], lane_len[m.z], m.x);
-      out[0] = m.y;
-      const uint32_t tab =
-          static_cast<uint32_t>(__cvta_generic_to_shared(s_skip));
-      const int dcrow = t.dcrow[m.w];
-      uint32_t e = lds32(tab + 4 * (dcrow * kT11 + br.step()));
-      int sym = 0, length = 0;
-      if (e == 0) {
-        length = t.walk(dcrow, br.peek32(), &sym);
-        e = make_entry(length, sym, true);
-      }
-      if (e != 0) {
-        br.consume(e & 0x3F);
-        const int acrow = t.acrow[m.w];
-        int k = 1;
-        while (k < 64) {
-          e = lds32(tab + 4 * (acrow * kT11 + br.step()));
-          if (e == 0) {
-            length = t.walk(acrow, br.peek32(), &sym);
-            e = make_entry(length, sym, false);
-          }
-          if (e == 0) break;
-          const int adv = static_cast<int>(e >> 24);
-          // EOB and ZRL carry no magnitude bits: they store a zero at a
-          // position not yet written (>= k).
-          out[min(k + adv - 1, 63)] =
-              magnitude(br.buf, (e >> 8) & 0x1F, (e >> 16) & 0x1F);
-          br.consume(e & 0x3F);
-          k = min(k + adv, 64);
-        }
-      }
+      decode_block<1>(br, t, tab, t.dcrow[m.w], t.acrow[m.w], m.y,
+                      stage + tid * kStage);
     }
     __syncwarp();
     // The warp's rows are contiguous in the output: 16 B a thread.
@@ -438,10 +247,8 @@ int jt_huffman_lanes(const void* data, const void* lane_start,
   const size_t stage_bytes = sizeof(int32_t) * kWarps * 32 * kStage;
   static int sms = 0;  // set last, once both kernels may use their memory
   if (sms == 0) {
-    int dev = 0, n_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e;
+    const int n_sm = sm_count(&e);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(boundary_pass,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -461,12 +268,7 @@ int jt_huffman_lanes(const void* data, const void* lane_start,
   const auto* cn = static_cast<const int32_t*>(canon);
   const auto* sl = static_cast<const int32_t*>(slots);
   auto* m = static_cast<int4*>(meta);
-  // Lanes per warp: the fewest (a power of two) that keep the launch at
-  // <= 8 warps per SM, about two per scheduler.
-  int lanes_per_warp = 1;
-  while (lanes_per_warp < 32 &&
-         (n_lanes + lanes_per_warp - 1) / lanes_per_warp > 8 * sms)
-    lanes_per_warp *= 2;
+  const int lanes_per_warp = lanes_per_warp_for(n_lanes, sms);
   const int per_block = (kWalkThreads / 32) * lanes_per_warp;
   boundary_pass<<<(n_lanes + per_block - 1) / per_block, kWalkThreads,
                   skip_bytes, s>>>(

@@ -1,246 +1,290 @@
-// K4: word-column Huffman decoder for Hopper (sm_90a).
+// K4: word-column Huffman decoder for Hopper (sm_90a), in two passes.
 //
 // Replaces the Pallas kernel jpeg_tpu/entropy/device_kernel.py::_make_kernel
 // (built by _compiled_kernel4): the v4 tier, which decodes every restart
-// segment ("lane") in lockstep over lane-private word columns, one MCU per
-// grid step. It keeps that kernel's layout and output contract bit for bit,
-// flagged lanes included, and none of its TPU mechanics (select-reduce
-// gathers over [T, S], the Kronecker MXU split, the sequential grid with
-// VMEM scratch). One thread decodes one lane serially:
+// segment ("lane") over lane-private word columns. It keeps that kernel's
+// layouts and output contract bit for bit, flagged lanes included, and none
+// of its mechanics: no lockstep grid over MCUs, no select-reduce gathers, no
+// 96-bit register with its `cnt <= 32` refill rule and `>= 31 bits` mask, no
+// step counter (a block closes within 63 AC symbols whatever the stream, see
+// huffman_common.cuh). The TPU kernel's cursor is simply the bits a lane has
+// consumed, which the reader counts.
 //
-// - input: words [W, S] int32, big-endian 32-bit words of each lane's
-//   segment, 0xAA fill up to W words, lane-minor, so the threads of a warp
-//   that read the same word index touch one line; a word index >= W reads 0
-//   (the TPU kernel's gather matches no row there);
-// - the TPU kernel's 96-bit register (hi, mi, lo) with its bookkeeping: two
-//   words appended whenever it holds <= 32 bits, shifts of 32 giving 0 as
-//   XLA's do. The TPU kernel decodes a symbol only while the register holds
-//   >= 31 bits; a refill leaves >= 33 and a symbol takes at most 32, so that
-//   mask is always true here and has no branch;
-// - symbols: an 11-bit LUT (len | sym << 8) plus the canonical walk over
-//   code lengths 12..16 (mincode / maxcode / valptr), tables of all eight
-//   slots in shared memory; Table F.2 sign extension; per-component DC
-//   prediction with 32-bit wrap; EOB / ZRL with the run capped at the block
-//   end; at most kMaxSteps AC symbols per block;
-// - errors: a lane stops at its first invalid prefix or at a block still
-//   open after kMaxSteps; that block keeps what it wrote plus its DC
-//   predictor, later blocks are zeros. The flag is also set when the lane
-//   consumed more than 8 bits past its segment end (cursor > bitend + 8).
+// - input: words [W, S] int32, lane-minor: lane l's stream is the big-endian
+//   32-bit words words[i * S + l], its segment's bytes, then 0xAA fill up to
+//   W words, then zeros for every word index >= W. A flagged lane can read
+//   far past W (zeros often decode as a short valid code), so the reader
+//   makes those zeros itself;
+// - symbols, magnitudes, DC prediction, EOB / ZRL: as K3, from the same
+//   host-built tables (device_huffman.kernel_tables);
+// - errors: a lane stops at its first invalid prefix; that block keeps what
+//   it decoded so far plus its DC predictor, later blocks are zeros. The
+//   flag is set then, or when the lane consumed more than 8 bits past its
+//   segment end (consumed bits > bitend + 8).
 //
 // Output: out [max_mcus, bpm, 64, S] int32, zigzag order, DC predicted,
-// every element written (zeros for inactive lanes and blocks past a lane's
-// nblk). A block is staged in shared memory, one column per thread, then
-// the warp stores it: the 32 lanes of one (m, slot, k) are 128 contiguous
-// bytes. err [S] u8.
+// lane-minor, every element written (zeros for blocks past a lane's nblk
+// and after its error block); err [S] u8. Both allocated uninitialised.
 //
-// Bound on the H100: latency, as K3. Decoding is bit-serial within a lane,
-// and a batch of 8 4K frames has 1,080 lanes (34 warps on 132 SMs). Against
-// K3 it loads a 32-bit word per 32 bits of stream instead of a byte per 8,
-// and its output is 4 B per coefficient for every (lane, block) slot of the
-// grid, dense and coalesced. Lane parallelism is the first lever.
+// The design is K3's (huffman_common.cuh holds the pass bodies):
+//
+// Pass 1 (boundary_pass): one thread per lane walks the lane's symbols
+// through the pair table without decoding values and records, per block, its
+// start bit and the DC predictor after it: 16 bytes at scratch
+// [block index, lane], lane-minor, slot -1 for every block the lane does not
+// decode. Bound: the latency of that serial chain (a 4K lane's ~15,500
+// symbols take ~10,000 steps); the launcher gives a warp as few lanes as
+// keep about two warps per scheduler, as K3's.
+//
+// Pass 2 (block_pass): one warp per (block index, 32 consecutive lanes). It
+// reads its 32 records as 512 contiguous bytes; each thread decodes its
+// lane's block from the recorded start bit into its column of a shared
+// staging tile [64, 32]; the warp then writes the tile as 64 lines of 128
+// contiguous bytes, each output byte once. Stream reads are scattered
+// 4-byte loads (a warp's threads stand at nearby, unequal bits of
+// neighbouring columns); a 4K frame's words are 1-2 MB and stay in L2.
+// Bound: the output bytes.
+//
+// On one 4K frame (135 lanes, 51 MB out; byte bound 0.015 ms) pass 1 takes
+// 1.36 ms, as K3's on the same stream, and pass 2 0.05 ms; on 8 frames 1.77
+// and 0.24 ms (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py --times).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "huffman_common.cuh"
+
 namespace {
 
-constexpr int kT11 = 2048;     // primary LUT entries (11-bit peek)
-constexpr int kRows = 8;       // 4 DC + 4 AC table slots
-constexpr int kThreads = 32;   // one warp per block spreads lanes over SMs
-constexpr int kMaxSlots = 10;  // blocks per MCU (JPEG limit)
-constexpr int kMaxSteps = 70;  // AC symbols per block before a lane is flagged
+using namespace huffman;
 
-__device__ __forceinline__ uint32_t shr(uint32_t x, int a) {  // a in [0, 32]
-  return a >= 32 ? 0u : x >> a;
-}
-__device__ __forceinline__ uint32_t shl(uint32_t x, int a) {  // a in [0, 32]
-  return a >= 32 ? 0u : x << a;
-}
+constexpr int kRowThreads = 256;  // pass 2: eight warps per block
+constexpr int kWarps = kRowThreads / 32;
+constexpr int kTile = 64 * 32;    // staging tile per warp, i32
 
-// The lane's register: the next `cnt` stream bits, left-aligned in hi:mi:lo,
-// zeros after them; `wi` is the next word to append.
-struct Register {
+// A lane's bits, left-aligned in a 64-bit buffer, over column `col` of the
+// word matrix. Bytes are counted as K3's reader counts them; a refill tops
+// the buffer up to 56-63 bits from the three words loaded at the previous
+// refill and loads the next three. The words are big-endian values already.
+// Every word of a column lies in another cache line, which the lanes of
+// other warps share, so these loads miss the L1; issued a refill ahead, they
+// are not waited for (asking the L1 for lines further ahead gained nothing).
+struct WordReader {
   const uint32_t* col;  // words + lane: word i at col[i * stride]
-  int64_t stride, n_words;
-  int64_t wi;
-  int cnt;
-  uint32_t hi, mi, lo;
+  int stride;   // S; W * S < 2^31 (the launcher checks)
+  int n_words;  // W; a word index at or past it reads 0
+  int pos;      // bytes moved into buf
+  int cnt;      // valid bits in buf
+  uint64_t buf;
+  uint32_t w0, w1, w2;  // words pos / 4 .. pos / 4 + 2
 
-  __device__ uint32_t word(int64_t i) const {
-    return i < n_words ? col[i * stride] : 0u;
+  __device__ __forceinline__ uint32_t word(int i) const {
+    return i < n_words ? __ldg(col + i * stride) : 0u;
   }
-  __device__ void refill() {
-    if (cnt > 32) return;
-    const uint32_t w0 = word(wi), w1 = word(wi + 1);
-    const int inv = 32 - cnt;
-    hi |= shr(w0, cnt);
-    mi |= shl(w0, inv) | shr(w1, cnt);
-    lo |= shl(w1, inv);
-    wi += 2;
-    cnt += 64;
-  }
-  __device__ void consume(int d) {  // d in [0, 32]
-    hi = shl(hi, d) | shr(mi, 32 - d);
-    mi = shl(mi, d) | shr(lo, 32 - d);
-    lo = shl(lo, d);
-    cnt -= d;
-  }
-  // Bits [length, length + nbits) of the register top, sign-extended per
-  // Table F.2 (length + nbits <= 32, nbits <= 16).
-  __device__ int32_t magnitude(int length, int nbits) const {
-    if (nbits == 0) return 0;
-    const int32_t raw = static_cast<int32_t>(
-        shr(hi, 32 - length - nbits) & ((1u << nbits) - 1));
-    const int32_t base = 1 << (nbits - 1);
-    return raw < base ? raw - 2 * base + 1 : raw;
-  }
-  __device__ int64_t cursor() const { return wi * 32 - cnt; }
-};
-
-struct Tables {
-  uint16_t lut[kRows * kT11];  // len | sym << 8; 0 = resolve canonically
-  uint8_t huffval[kRows * 256];
-  int32_t canon[kRows * 15];   // per row: mincode[5], maxcode[5], valptr[5]
-};
-
-// One symbol from the register top, as the TPU kernel's resolve: the LUT
-// entry, else the canonical walk (a code index past the 256 values reads
-// symbol 0). Returns the code length (0 = invalid prefix) and sets *sym.
-__device__ __forceinline__ int resolve(const Tables& t, int row, uint32_t hi,
-                                       int* sym) {
-  const uint32_t e = t.lut[row * kT11 + (hi >> 21)];
-  if (e & 0x1F) {
-    *sym = (e >> 8) & 0xFF;
-    return e & 0x1F;
-  }
-  const int32_t p16 = static_cast<int32_t>(hi >> 16);
-  const int32_t* cn = t.canon + row * 15;
-  int len = 0, idx = 0;
-  for (int i = 0; i < 5; ++i) {
-    const int32_t code = p16 >> (4 - i);  // 16 - (12 + i)
-    if (cn[5 + i] >= 0 && len == 0 && code >= cn[i] && code <= cn[5 + i]) {
-      len = 12 + i;
-      idx = cn[10 + i] + code - cn[i];
+  __device__ __forceinline__ void fetch() {
+    const int i = pos >> 2;
+    const uint32_t* p = col + i * stride;
+    if (i + 2 < n_words) {  // all but a column's last words, and past them
+      w0 = __ldg(p);
+      w1 = __ldg(p + stride);
+      w2 = __ldg(p + 2 * stride);
+    } else {
+      w0 = word(i);
+      w1 = word(i + 1);
+      w2 = word(i + 2);
     }
   }
-  *sym = idx < 256 ? t.huffval[row * 256 + idx] : 0;
-  return len;
+  // Bytes pos .. pos + 7 of the stream.
+  __device__ __forceinline__ uint64_t window() const {
+    const int sh = (pos & 3) * 8;
+    return (static_cast<uint64_t>(__funnelshift_l(w1, w0, sh)) << 32) |
+           __funnelshift_l(w2, w1, sh);
+  }
+  __device__ __forceinline__ void refill() {
+    if (cnt < 43) {
+      buf |= window() >> cnt;
+      pos += (63 - cnt) >> 3;
+      cnt |= 56;
+      fetch();
+    }
+  }
+  __device__ __forceinline__ void start(const uint32_t* column, int s, int w,
+                                        int bit) {
+    col = column;
+    stride = s;
+    n_words = w;
+    // Keep the column's address and stride in registers: left alone, the
+    // compiler rebuilds both from the kernel's parameters at every refill.
+    asm volatile("" : "+l"(col), "+r"(stride));
+    pos = bit >> 3;
+    cnt = 0;
+    buf = 0;
+    fetch();
+    refill();
+    consume(bit & 7);
+  }
+  __device__ __forceinline__ uint32_t peek32() const {
+    return static_cast<uint32_t>(buf >> 32);
+  }
+  __device__ __forceinline__ void consume(int n) {
+    buf <<= n;
+    cnt -= n;
+  }
+  __device__ __forceinline__ int consumed_bits() const { return pos * 8 - cnt; }
+  __device__ __forceinline__ uint32_t top11() const {
+    return static_cast<uint32_t>(buf >> 53);
+  }
+};
+
+__global__ void __launch_bounds__(kWalkThreads)
+boundary_pass(const uint32_t* __restrict__ words, int n_words, int S,
+              const int32_t* __restrict__ nblk,
+              const int32_t* __restrict__ bitend,
+              const int32_t* __restrict__ pair, const int32_t* __restrict__ hv,
+              const int32_t* __restrict__ canon,
+              const int32_t* __restrict__ slots, int n_rows, int bpm,
+              int lanes_per_warp, int total_blocks, int4* __restrict__ meta,
+              uint8_t* __restrict__ err_out) {
+  extern __shared__ uint32_t s_skip[];
+  __shared__ SharedTables st;
+  const Tables t = load_tables(s_skip, &st, pair, hv, canon, slots, n_rows, bpm);
+  __shared__ SlotDesc s_desc[kMaxSlots];
+  __shared__ int32_t s_pred[4 * kWalkThreads];
+  const uint32_t tab = static_cast<uint32_t>(__cvta_generic_to_shared(s_skip));
+  init_walk(s_desc, s_pred, st, tab, bpm);
+
+  const int in_warp = threadIdx.x & 31;
+  const int lane =
+      (blockIdx.x * (kWalkThreads / 32) + (threadIdx.x >> 5)) * lanes_per_warp +
+      in_warp;
+  if (in_warp >= lanes_per_warp || lane >= S) return;
+  WordReader br;
+  br.start(words + lane, S, n_words, 0);
+  const int n = min(nblk[lane], total_blocks);
+  int4* rec = meta + lane;  // block b's record at rec[b * S]
+  const int64_t stride = S;
+  bool bad;
+  const int blk = walk_lane(br, t, s_desc, s_pred, tab, st.dcrow[0], n, bpm,
+                            lane,
+                            [rec, stride](int b) { return rec + b * stride; },
+                            &bad);
+  // Blocks after the lane's error block, and past its nblk, are zeros.
+  for (int b = blk + (bad ? 1 : 0); b < total_blocks; ++b)
+    rec[b * stride] = make_int4(0, 0, lane, -1);
+  err_out[lane] =
+      (bad || br.consumed_bits() > static_cast<int64_t>(bitend[lane]) + 8) ? 1
+                                                                           : 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
-huffman_words_kernel(const uint32_t* __restrict__ words, int n_words, int S,
-                     const int32_t* __restrict__ luts,      // [8, 2048]
-                     const int32_t* __restrict__ huffvals,  // [8, 256]
-                     const int32_t* __restrict__ canon,     // [8, 15]
-                     const int32_t* __restrict__ slots,     // [bpm, 3]
-                     int bpm, const int32_t* __restrict__ nblk,
-                     const int32_t* __restrict__ bitend, int max_mcus,
-                     int32_t* __restrict__ out, uint8_t* __restrict__ err_out) {
-  __shared__ Tables t;
-  __shared__ int32_t blk[64][kThreads];  // the block being decoded, by column
-  __shared__ int s_comp[kMaxSlots], s_dc[kMaxSlots], s_ac[kMaxSlots];
-  for (int i = threadIdx.x; i < kRows * kT11; i += blockDim.x)
-    t.lut[i] = static_cast<uint16_t>(luts[i]);
-  for (int i = threadIdx.x; i < kRows * 256; i += blockDim.x)
-    t.huffval[i] = static_cast<uint8_t>(huffvals[i]);
-  for (int i = threadIdx.x; i < kRows * 15; i += blockDim.x)
-    t.canon[i] = canon[i];
-  for (int i = threadIdx.x; i < bpm; i += blockDim.x) {
-    s_comp[i] = slots[3 * i];
-    s_dc[i] = slots[3 * i + 1];
-    s_ac[i] = 4 + slots[3 * i + 2];
-  }
-  __syncthreads();
+__global__ void __launch_bounds__(kRowThreads)
+block_pass(const uint32_t* __restrict__ words, int n_words, int S,
+           const int32_t* __restrict__ skip, const int32_t* __restrict__ hv,
+           const int32_t* __restrict__ canon,
+           const int32_t* __restrict__ slots, int n_rows, int bpm,
+           const int4* __restrict__ meta, int total_blocks,
+           int32_t* __restrict__ out) {
+  extern __shared__ uint32_t s_skip[];
+  __shared__ SharedTables st;
+  const Tables t = load_tables(s_skip, &st, skip, hv, canon, slots, n_rows, bpm);
+  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x & 31;
+  int32_t* stage = reinterpret_cast<int32_t*>(s_skip + n_rows * kT11) + warp * kTile;
+  int4* stage4 = reinterpret_cast<int4*>(stage);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const uint32_t tab = static_cast<uint32_t>(__cvta_generic_to_shared(s_skip));
+  const int chunks = (S + 31) / 32;  // lane chunks per block index
+  const int64_t n_tasks = static_cast<int64_t>(total_blocks) * chunks;
 
-  const int tid = threadIdx.x;
-  const int lane = blockIdx.x * kThreads + tid;
-  const bool live = lane < S;  // dead threads still join the warp's stores
-  Register r{words + (live ? lane : 0), S, n_words, 2, 64, 0, 0, 0};
-  if (live) {
-    r.hi = r.word(0);
-    r.mi = r.word(1);
-  }
-  const int n = live ? nblk[lane] : 0;
-  int32_t dc[4] = {0, 0, 0, 0};
-  bool err = false;
-  for (int m = 0; m < max_mcus; ++m) {
-    for (int slot = 0; slot < bpm; ++slot) {
-      for (int i = 0; i < 64; ++i) blk[i][tid] = 0;
-      if (!err && m * bpm + slot < n) {
-        int sym;
-        r.refill();
-        int len = resolve(t, s_dc[slot], r.hi, &sym);
-        int coef = 64;
-        if (len == 0) {
-          err = true;
-        } else {
-          blk[0][tid] = r.magnitude(len, sym);
-          r.consume(len + sym);
-          coef = 1;
-        }
-        for (int step = 0; step < kMaxSteps && coef < 64; ++step) {
-          r.refill();
-          len = resolve(t, s_ac[slot], r.hi, &sym);
-          if (len == 0) {
-            err = true;
-            break;
-          }
-          if (sym == 0x00) {  // EOB
-            r.consume(len);
-            coef = 64;
-          } else if (sym == 0xF0) {  // ZRL
-            r.consume(len);
-            coef = min(coef + 16, 64);
-          } else {
-            const int size = sym & 0xF;
-            const int32_t val = r.magnitude(len, size);
-            r.consume(len + size);
-            coef += min(sym >> 4, 63 - coef);
-            blk[coef][tid] = val;
-            ++coef;
-          }
-        }
-        if (coef < 64) err = true;
-        const int comp = s_comp[slot];  // DC sums wrap at 32 bits, as in i32
-        dc[comp] = static_cast<int32_t>(static_cast<uint32_t>(dc[comp]) +
-                                        static_cast<uint32_t>(blk[0][tid]));
-        blk[0][tid] = dc[comp];
-      }
-      __syncwarp();
-      if (live) {
-        int32_t* dst = out + (static_cast<int64_t>(m) * bpm + slot) * 64 * S + lane;
-        for (int i = 0; i < 64; ++i) dst[static_cast<int64_t>(i) * S] = blk[i][tid];
-      }
-      __syncwarp();
+  for (int64_t task = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+       task < n_tasks; task += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int64_t b = task / chunks;
+    const int lane = static_cast<int>(task - b * chunks) * 32 + tid;
+    // Zero the warp's tile: 16 B a thread, 512 B a step.
+#pragma unroll
+    for (int i = 0; i < kTile / 128; ++i) stage4[i * 32 + tid] = zero;
+    __syncwarp();
+    const int4 m = lane < S ? __ldg(meta + b * S + lane) : make_int4(0, 0, 0, -1);
+    if (m.w >= 0) {
+      WordReader br;
+      br.start(words + lane, S, n_words, m.x);
+      decode_block<32>(br, t, tab, t.dcrow[m.w], t.acrow[m.w], m.y, stage + tid);
     }
+    __syncwarp();
+    // Line k of the tile is 128 contiguous bytes of the output.
+    if (lane < S) {
+      int32_t* dst = out + b * 64 * S + lane;
+#pragma unroll 16
+      for (int k = 0; k < 64; ++k)
+        dst[static_cast<int64_t>(k) * S] = stage[k * 32 + tid];
+    }
+    __syncwarp();
   }
-  if (live)
-    err_out[lane] =
-        (err || r.cursor() > static_cast<int64_t>(bitend[lane]) + 8) ? 1 : 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K4 on `stream`. All pointers are device pointers; `out` is written
-// in full. Returns cudaGetLastError() after the launch (0 = launched).
+// Launch K4's two passes on `stream`. All pointers are device pointers:
+// words [n_words, S] i32; nblk, bitend [S] i32; the skip and pair tables
+// [n_rows, 2048] (pass 2's and pass 1's), huffval [n_rows, 256], canon
+// [n_rows, 15] (i32) of the n_rows table rows the slots use, slots [bpm, 3]
+// (component, DC row, AC row into them); scratch meta [max_mcus * bpm, S, 4]
+// i32; outputs out [max_mcus, bpm, 64, S] i32 and err [S] u8, none
+// initialised. Returns cudaGetLastError() after the launches (0 = launched).
 int jt_huffman_words(const void* words, int32_t n_words, int32_t S,
-                     const void* luts, const void* huffvals, const void* canon,
-                     const void* slots, int32_t bpm, const void* nblk,
-                     const void* bitend, int32_t max_mcus, void* out,
-                     void* err, void* stream) {
-  if (n_words < 2 || S < 1 || bpm < 1 || bpm > kMaxSlots || max_mcus < 0)
+                     const void* nblk, const void* bitend, const void* skip,
+                     const void* pair, const void* huffval, const void* canon,
+                     const void* slots, int32_t n_rows, int32_t bpm,
+                     int32_t max_mcus, void* meta, void* out, void* err,
+                     void* stream) {
+  if (n_words < 2 || S < 1 || bpm < 1 || bpm > kMaxSlots || n_rows < 1 ||
+      n_rows > kMaxRows || max_mcus < 0 ||
+      static_cast<int64_t>(max_mcus) * bpm > INT32_MAX ||
+      static_cast<int64_t>(n_words) * S > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (S + kThreads - 1) / kThreads;
-  huffman_words_kernel<<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words, S,
-      static_cast<const int32_t*>(luts), static_cast<const int32_t*>(huffvals),
-      static_cast<const int32_t*>(canon), static_cast<const int32_t*>(slots),
-      bpm, static_cast<const int32_t*>(nblk),
-      static_cast<const int32_t*>(bitend), max_mcus,
-      static_cast<int32_t*>(out), static_cast<uint8_t*>(err));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t skip_bytes = sizeof(uint32_t) * kT11 * n_rows;
+  const size_t stage_bytes = sizeof(int32_t) * kWarps * kTile;
+  static int sms = 0;  // set last, once both kernels may use their memory
+  if (sms == 0) {
+    cudaError_t e;
+    const int n_sm = sm_count(&e);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(boundary_pass,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(sizeof(uint32_t) * kT11 * kMaxRows));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          block_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(sizeof(uint32_t) * kT11 * kMaxRows + stage_bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sms = n_sm;
+  }
+  const auto* w = static_cast<const uint32_t*>(words);
+  const auto* hv = static_cast<const int32_t*>(huffval);
+  const auto* cn = static_cast<const int32_t*>(canon);
+  const auto* sl = static_cast<const int32_t*>(slots);
+  auto* m = static_cast<int4*>(meta);
+  const int total_blocks = max_mcus * bpm;
+  const int lanes_per_warp = lanes_per_warp_for(S, sms);
+  const int per_block = (kWalkThreads / 32) * lanes_per_warp;
+  boundary_pass<<<(S + per_block - 1) / per_block, kWalkThreads, skip_bytes,
+                  s>>>(
+      w, n_words, S, static_cast<const int32_t*>(nblk),
+      static_cast<const int32_t*>(bitend), static_cast<const int32_t*>(pair),
+      hv, cn, sl, n_rows, bpm, lanes_per_warp, total_blocks, m,
+      static_cast<uint8_t*>(err));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || total_blocks == 0) return static_cast<int>(e);
+  // Two blocks of eight warps per SM, each walking warp-sized tasks.
+  const int64_t n_tasks = static_cast<int64_t>(total_blocks) * ((S + 31) / 32);
+  const int64_t blocks_needed = (n_tasks + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(
+      blocks_needed < 2 * sms ? blocks_needed : 2 * sms);
+  block_pass<<<blocks, kRowThreads, skip_bytes + stage_bytes, s>>>(
+      w, n_words, S, static_cast<const int32_t*>(skip), hv, cn, sl, n_rows,
+      bpm, m, total_blocks, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

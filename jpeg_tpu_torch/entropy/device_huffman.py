@@ -365,7 +365,8 @@ def _configure(lib) -> None:
 
 def load_kernel():
     """Build (at first use) and load the K3 library."""
-    return load_cuda_kernel("huffman_lanes", (), _configure)
+    return load_cuda_kernel("huffman_lanes", (), _configure,
+                            headers=("huffman_common.cuh",))
 
 
 def decode_lanes_cuda(t: dict, n_lanes: int, total_rows: int):

@@ -6,6 +6,13 @@ Counterpart of ``jpeg_tpu/entropy/device_kernel.py``
 ``csrc/huffman_words.cu``; :func:`decode_words_plain` is its plain PyTorch
 twin, decoding all lanes in lockstep with tensor operations.
 
+The kernel runs K3's two passes over the word columns (a serial walk per
+lane that records each block's start bit and DC predictor, then one thread
+per block), from the tables K3's passes read
+(:func:`~jpeg_tpu_torch.entropy.device_huffman.kernel_tables`), which
+:func:`kernel_tables_device` builds on the host from the same rows as
+``luts`` and ``hvs``.
+
 Layout (the TPU kernel's): one lane per restart segment, on the minor axis.
 ``words [W, S]`` int32 holds each lane's segment as big-endian 32-bit words,
 padded with 0xAA fill bytes up to ``W`` words; a word index at or past
@@ -14,12 +21,16 @@ predicted), every element written, and ``err [1, S]`` bool.
 
 Contract, bit for bit that of the TPU kernel (flagged lanes included):
 
-- a 96-bit register refilled with two words whenever it holds <= 32 bits;
-  the TPU kernel decodes a symbol only while it holds >= 31 bits, which
-  always holds after a refill (a symbol takes at most 32 bits, so a refill
-  leaves >= 33);
-- at most ``MAX_BLOCK_STEPS`` AC symbols per block; a block still open
-  after them flags its lane;
+- the twin keeps the TPU kernel's 96-bit register, refilled with two words
+  whenever it holds <= 32 bits; the TPU kernel decodes a symbol only while
+  it holds >= 31 bits, which always holds after a refill (a symbol takes at
+  most 32 bits, so a refill leaves >= 33). The register's cursor is the
+  bits a lane consumed, which is all the CUDA kernel keeps of it;
+- at most ``MAX_BLOCK_STEPS`` AC symbols per block in the twin; a block
+  still open after them would flag its lane. It cannot happen: a block
+  opens at coefficient 1 and every AC symbol advances it by at least 1, so
+  63 symbols close any block (``tests/test_torch_k4_two_pass.py``), and the
+  CUDA kernel carries no counter;
 - a lane stops at its first invalid prefix: that block keeps what it wrote
   plus its DC predictor, its later blocks and blocks past its ``nblk`` are
   zeros;
@@ -50,6 +61,7 @@ from jpeg_tpu_torch.entropy.device_huffman import (
     T11,
     _magnitude,
     _resolve,
+    kernel_tables,
     lane_tables,
     slot_rows,
 )
@@ -123,11 +135,23 @@ def kernel_constants(plan, device="cuda"):
             torch.from_numpy(slot_rows(plan)).to(dev))
 
 
+def kernel_tables_device(lut, hv, canon, slots, device) -> tuple:
+    """The CUDA kernel's tables on ``device``, from :func:`lane_tables`'
+    ``lut [8, T11]``, ``hv [8, 256]``, ``canon [8, 15]`` and
+    :func:`slot_rows`' ``slots [bpm, 3]`` (numpy int32): K3's
+    (skip, pair, huffval, canon, slots) of
+    :func:`~jpeg_tpu_torch.entropy.device_huffman.kernel_tables`, cut to the
+    table rows the slots use."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in kernel_tables(lut, hv, canon, slots))
+
+
 def _runner(words, plan, nblk, bitend, max_mcus, device, gather):
     """(run, args) for K4 over prepared lanes. ``args`` are the TPU kernel's
     (words, luts, hvs, nblk, bitend) on ``device``; ``run`` carries the
     constants the TPU kernel bakes into its trace (canonical parameters,
-    slot structure, ``max_mcus``)."""
+    slot structure, ``max_mcus``) and, on a CUDA device, the kernel's skip
+    and pair tables."""
     _check_gather(gather)
     for t in plan.dc_tables:  # the parser refuses these; a built plan may not
         if len(t.values) and int(np.max(t.values)) > 16:
@@ -139,10 +163,12 @@ def _runner(words, plan, nblk, bitend, max_mcus, device, gather):
         words, luts, hvs, np.array([nblk], np.int32),
         np.array([bitend], np.int32)))
     canon_t, slots_t = kernel_constants(plan, dev)
+    tables = (kernel_tables_device(*lane_tables(plan), slot_rows(plan), dev)
+              if dev.type == "cuda" else None)
 
     def run(words, luts, hvs, nblk, bitend):
         return decode_words(words, luts, hvs, nblk, bitend, canon_t, slots_t,
-                            max_mcus)
+                            max_mcus, tables)
 
     return run, args
 
@@ -338,16 +364,17 @@ def _configure(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
     lib.jt_huffman_words.restype = ctypes.c_int
     lib.jt_huffman_words.argtypes = [
-        vp, i32, i32,  # words, W, S
-        vp, vp, vp, vp, i32,  # luts, huffvals, canon, slots, bpm
-        vp, vp, i32,  # nblk, bitend, max_mcus
-        vp, vp, vp,  # out, err, stream
+        vp, i32, i32, vp, vp,  # words, W, S, nblk, bitend
+        vp, vp, vp, vp, vp,  # skip, pair, huffval, canon, slots
+        i32, i32, i32,  # table rows, bpm, max_mcus
+        vp, vp, vp, vp,  # meta, out, err, stream
     ]
 
 
 def load_kernel():
     """Build (at first use) and load the K4 library."""
-    return load_cuda_kernel("huffman_words", (), _configure)
+    return load_cuda_kernel("huffman_words", (), _configure,
+                            headers=("huffman_common.cuh",))
 
 
 def _check_args(words, luts, hvs, nblk, bitend, canon, slots):
@@ -366,23 +393,46 @@ def _check_args(words, luts, hvs, nblk, bitend, canon, slots):
             raise ValueError(f"K4 input {name} must be contiguous on {dev}")
     if W < 2 or S < 1 or not 1 <= slots.shape[0] <= MAX_SLOTS:
         raise ValueError(f"K4 takes W >= 2, S >= 1 and 1..{MAX_SLOTS} slots")
+    if W * S >= 2**31:
+        raise ValueError(f"K4 indexes words with 32 bits: W * S = {W * S} "
+                         "must stay below 2^31")
 
 
 def decode_words_cuda(words, luts, hvs, nblk, bitend, canon, slots,
-                      max_mcus: int):
-    """Launch K4 on the current stream. Same contract as
-    :func:`decode_words_plain`."""
+                      max_mcus: int, tables=None):
+    """Launch K4's two passes on the current stream. Same contract as
+    :func:`decode_words_plain`. ``tables`` are :func:`kernel_tables_device`'s
+    for these ``luts``, ``hvs``, ``canon`` and ``slots`` (the runners build
+    them once); without them they are built here, through the host. Every
+    output element is written once, so the outputs, and the per-block
+    records the passes share (16 B a block and lane), are allocated
+    uninitialised."""
     _check_args(words, luts, hvs, nblk, bitend, canon, slots)
     dev = words.device
     W, S = words.shape
     bpm = slots.shape[0]
+    if tables is None:
+        tables = kernel_tables_device(
+            luts[:, :, 0].cpu().numpy(), hvs[:, :, 0].cpu().numpy(),
+            canon.cpu().numpy(), slots.cpu().numpy(), dev)
+    skip, pair, hv, cn, kslots = tables
+    for x in tables:
+        if x.dtype != torch.int32 or x.device != dev or not x.is_contiguous():
+            raise ValueError(f"K4 tables must be contiguous int32 on {dev}")
+    if (skip.shape != pair.shape or skip.shape[1] != T11
+            or tuple(hv.shape) != (skip.shape[0], 256)
+            or tuple(cn.shape) != (skip.shape[0], 15)
+            or tuple(kslots.shape) != (bpm, 3)):
+        raise ValueError("K4 tables do not belong to these slots")
     lib = load_kernel()
     out = torch.empty((max_mcus, bpm, 64, S), dtype=torch.int32, device=dev)
+    meta = torch.empty((max_mcus * bpm, S, 4), dtype=torch.int32, device=dev)
     err = torch.empty(S, dtype=torch.uint8, device=dev)
     rc = lib.jt_huffman_words(
-        words.data_ptr(), W, S, luts.data_ptr(), hvs.data_ptr(),
-        canon.data_ptr(), slots.data_ptr(), bpm, nblk.data_ptr(),
-        bitend.data_ptr(), max_mcus, out.data_ptr(), err.data_ptr(),
+        words.data_ptr(), W, S, nblk.data_ptr(), bitend.data_ptr(),
+        skip.data_ptr(), pair.data_ptr(), hv.data_ptr(), cn.data_ptr(),
+        kslots.data_ptr(), skip.shape[0], bpm, max_mcus, meta.data_ptr(),
+        out.data_ptr(), err.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
@@ -391,14 +441,15 @@ def decode_words_cuda(words, luts, hvs, nblk, bitend, canon, slots,
 
 
 def decode_words(words, luts, hvs, nblk, bitend, canon, slots,
-                 max_mcus: int):
+                 max_mcus: int, tables=None):
     """K4 wrapper: the plain version for CPU tensors, the kernel for CUDA
-    tensors (no fallback between them)."""
+    tensors (no fallback between them). ``tables``: see
+    :func:`decode_words_cuda`; the plain version reads ``luts``."""
     kind = words.device.type
     if kind == "cpu":
         return decode_words_plain(words, luts, hvs, nblk, bitend, canon,
                                   slots, max_mcus)
     if kind == "cuda":
         return decode_words_cuda(words, luts, hvs, nblk, bitend, canon,
-                                 slots, max_mcus)
+                                 slots, max_mcus, tables)
     raise ValueError(f"K4 runs on cpu or cuda, not {words.device}")

@@ -34,12 +34,7 @@ import ctypes
 import numpy as np
 import torch
 
-from jpeg_tpu_torch.ops.fused_plane import (
-    band_mcus,
-    n_bands,
-    padded_plane_shapes,
-    padded_size,
-)
+from jpeg_tpu_torch.ops.fused_plane import padded_plane_shapes, padded_size
 from jpeg_tpu_torch.ops.idct import dct_basis_1d
 from jpeg_tpu_torch.ops.zigzag import unzigzag
 from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
@@ -164,8 +159,8 @@ def _configure(lib) -> None:
     lib.jt_fused_encode.argtypes = [
         vp, ctypes.POINTER(vp), ctypes.POINTER(i64),
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # rgb, planes, strides, h, v
-        i32, i32, i32, i32, i32,  # n_comp, h_max, v_max, band_mcus, n_bands
-        vp, vp,  # iqtab, basis
+        i32, i32, i32, i32,  # n_comp, h_max, v_max, MCU rows of H_pad
+        vp, ctypes.POINTER(ctypes.c_float),  # iqtab, basis (host)
         i64, i64, i64, vp,  # batch, h_pad, w_pad, stream
     ]
 
@@ -180,16 +175,19 @@ def load_kernel():
 def fused_plane_encode_cuda(rgb, iqtabs, geom) -> list[torch.Tensor]:
     """Launch K2 on the current stream. Same contract as
     :func:`fused_plane_encode_plain`; both tensors must be on one CUDA
-    device and contiguous."""
+    device and contiguous, and ``rgb`` 16-byte aligned (the kernel loads 16
+    pixels of a channel at a time)."""
     batch = _check_inputs(rgb, iqtabs, geom)
     dev = rgb.device
     if iqtabs.device != dev or not (rgb.is_contiguous() and iqtabs.is_contiguous()):
         raise ValueError("K2 inputs must be contiguous and on one device")
+    if rgb.data_ptr() % 16:
+        raise ValueError("K2's rgb must start on a 16-byte boundary")
     lib = load_kernel()
     shapes = padded_plane_shapes(geom)
     n_comp = len(shapes)
     h_pad, w_pad = padded_size(geom)
-    basis = torch.tensor(dct_basis_1d(), dtype=torch.float32, device=dev)
+    basis = np.ascontiguousarray(dct_basis_1d(), np.float32)
     # 16-byte aligned rows (strides are multiples of 64 int16): the kernel
     # stores eight coefficients at a time.
     planes = [torch.empty((batch, *s), dtype=torch.int16, device=dev)
@@ -201,7 +199,8 @@ def fused_plane_encode_cuda(rgb, iqtabs, geom) -> list[torch.Tensor]:
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.jt_fused_encode(
         rgb.data_ptr(), ptrs, strides, hs, vs, n_comp, geom.h_max, geom.v_max,
-        band_mcus(geom), n_bands(geom), iqtabs.data_ptr(), basis.data_ptr(),
+        h_pad // (8 * geom.v_max), iqtabs.data_ptr(),
+        basis.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         batch, h_pad, w_pad, stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: CUDA error {rc}")

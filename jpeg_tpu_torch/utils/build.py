@@ -3,7 +3,9 @@
 Two kinds of shared library, both with a plain C interface:
 
 - CUDA kernels (``csrc/*.cu``), compiled by ``nvcc`` for ``sm_90a``
-  (Hopper), one library per kernel so each keeps its own flags;
+  (Hopper), one library per kernel so each keeps its own flags; headers
+  they share (``csrc/*.cuh``) are found through ``-I csrc`` and hashed
+  with the source that includes them;
 - the host C++ entropy runtime (``jpeg_tpu/runtime/native/jpegtpu.cpp``),
   compiled by ``g++`` without the JAX package's profile-guided step (its
   training script imports jax), and the C++ entropy encoder
@@ -82,6 +84,8 @@ def find_nvcc() -> str:
 
 
 def _digest(cmd: list[str], sources: list[str]) -> str:
+    """Hash of the command and of every file in ``sources`` (the compiled
+    sources and the headers they include)."""
     # The host name is part of the key: g++ builds with -march=native, so a
     # library built on one machine must not be loaded on another.
     h = hashlib.sha256(" ".join([platform.node(), *cmd]).encode())
@@ -91,12 +95,15 @@ def _digest(cmd: list[str], sources: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(name: str, compiler: list[str], sources: list[str]) -> str:
+def build_library(name: str, compiler: list[str], sources: list[str],
+                  headers: tuple[str, ...] = ()) -> str:
     """Compile ``sources`` with ``compiler`` (the command without ``-o`` and
-    the sources) into ``build/lib<name>-<hash>.so``; returns the path. A
-    library that already exists under the same hash is reused."""
+    the sources) into ``build/lib<name>-<hash>.so``; returns the path. The
+    hash covers ``headers`` too (files the sources include), so editing one
+    rebuilds. A library that already exists under the same hash is reused."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, f"lib{name}-{_digest(compiler, sources)}.so")
+    digest = _digest(compiler, [*sources, *headers])
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return out
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lockf:
@@ -115,7 +122,7 @@ def build_library(name: str, compiler: list[str], sources: list[str]) -> str:
 
 
 def load_library(name: str, compiler: list[str], sources: list[str],
-                 configure) -> ctypes.CDLL:
+                 configure, headers: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (if needed) and load a library once per process;
     ``configure(lib)`` declares its ctypes signatures. Different libraries
     may be built from different threads at once."""
@@ -124,21 +131,24 @@ def load_library(name: str, compiler: list[str], sources: list[str],
     with lk:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_library(name, compiler, sources))
+            lib = ctypes.CDLL(build_library(name, compiler, sources, headers))
             configure(lib)
             _loaded[name] = lib
         return lib
 
 
 def load_cuda_kernel(name: str, extra_flags: tuple[str, ...],
-                     configure) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` with nvcc for sm_90a and load it. Every
-    launch calls this: once loaded, the library is returned before anything
-    else (finding nvcc re-imports ``torch.utils.cpp_extension``, which
-    took 0.6 ms a call on the H100's host)."""
+                     configure, headers: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` with nvcc for sm_90a and load it.
+    ``headers`` names the files of ``csrc/`` it includes: they are found
+    through ``-I csrc`` and hashed with the source. Every launch calls
+    this: once loaded, the library is returned before anything else
+    (finding nvcc re-imports ``torch.utils.cpp_extension``, which took
+    0.6 ms a call on the H100's host)."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    return load_library(name, [find_nvcc(), *NVCC_FLAGS, *extra_flags],
-                        [src], configure)
+    return load_library(
+        name, [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *extra_flags],
+        [os.path.join(CSRC_DIR, f"{name}.cu")], configure,
+        tuple(os.path.join(CSRC_DIR, h) for h in headers))

@@ -172,6 +172,60 @@ def test_k4_kernel_equals_plain_on_corrupt_streams(cuda, name, runner):
     np.testing.assert_array_equal(got, want[0].cpu().numpy())
 
 
+def _mixed_interval_plans(copies):
+    """Images of three sizes and restart intervals (4:2:0, shared tables):
+    their lanes differ in ``nblk``; 13 lanes a copy."""
+    rng = np.random.default_rng(60)
+    plans = []
+    for _ in range(copies):
+        for shape, ri in [((48, 64), 4), ((80, 96), 8), ((64, 48), 2)]:
+            img = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+            plans.append(parse_jpeg(encode_rgb(
+                img, quality=85, subsampling=(2, 2), restart_interval_mcus=ri)))
+    return plans
+
+
+@pytest.mark.parametrize("copies", [1, 3])
+def test_k4_kernel_equals_plain_on_uneven_lanes(cuda, copies):
+    """Lanes with different block counts (zeros past a lane's blocks) and
+    a lane count that is no multiple of 32 (13 and 39), one of them corrupt:
+    every element and flag equals the plain version's."""
+    plans = _mixed_interval_plans(copies)
+    s = plans[1].segments[1]
+    mid = (s.byte_start + s.byte_end) // 2
+    plans[1].scan_data[mid : mid + 8] = 0xFF  # an invalid prefix mid-lane
+    run, args, mm, n, _ = k4.kernel_runner_batch(plans, device=cuda)
+    assert n == 13 * copies and len(set(args[3][0].tolist())) > 1
+    before = k4.LAUNCHES.value
+    out, err = run(*args)
+    assert k4.LAUNCHES.value == before + 1
+    plain_out, plain_err = k4.decode_words_plain(
+        *args, *k4.kernel_constants(plans[0], cuda), mm)
+    assert bool(err.any()) and torch.equal(err, plain_err)
+    assert torch.equal(out, plain_out)
+    # The same through decode_words without prebuilt tables.
+    again, again_err = k4.decode_words(
+        *args, *k4.kernel_constants(plans[0], cuda), mm)
+    assert torch.equal(again, out) and torch.equal(again_err, err)
+
+
+def test_k3_equals_k4_and_plain_on_uneven_lanes(cuda):
+    """K3 and K4 read their pass bodies from one header: on clean streams
+    both give the same coefficients per image, and K3 its plain twin's."""
+    plans = _mixed_interval_plans(2)
+    batch = k3.prepare_lane_batch(plans)
+    lanes = k3.lane_tensors(batch, cuda)
+    n = len(batch.lane_start)
+    ck, ek = k3.decode_lanes(lanes, n, batch.total_rows)
+    cp, ep = k3.decode_lanes_plain(lanes, n, batch.total_rows)
+    assert not ek.any() and torch.equal(ek, ep) and torch.equal(ck, cp)
+    got, err = k4.decode_coefficients_device4_batch(plans, device=cuda,
+                                                    to_host=False)
+    assert not err.any()
+    for g, (r0, rows) in zip(got, batch.images):
+        assert torch.equal(g, ck[r0 : r0 + rows])
+
+
 @pytest.mark.parametrize("shape", [(128, 256), (512, 768)])
 @pytest.mark.parametrize("kernel", ["K5", "K6"])
 def test_k5_k6_kernels_equal_plain(cuda, kernel, shape):
@@ -236,6 +290,50 @@ def test_k2_kernel_equals_plain(cuda, name):
     want = k2.fused_plane_encode_plain(rgb, iqt, geom)
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("sampling", K1_SAMPLINGS)
+def test_k2_kernel_equals_plain_every_sampling(cuda, sampling, batch):
+    """Every sampling K2 takes (luma h, v in 1, 2, 4 over 1x1 chroma, and
+    gray), seeded images of an odd size so the padded tiles and bands are
+    partly edge fill: identical planes."""
+    sub = K1_SAMPLINGS[sampling]
+    parts = []
+    for seed in range(batch):
+        img = _image(520, 200, seed + 3)
+        parts.append(encoder.device_inputs(
+            img[..., 0] if sub is None else img, 80 + seed, sub or (1, 1),
+            sub is None))
+    geom = parts[0][0]
+    rgb = torch.from_numpy(np.stack([p[1] for p in parts])).to(cuda)
+    iqt = torch.from_numpy(np.stack([p[2] for p in parts])).to(cuda)
+    before = k2.LAUNCHES.value
+    got = k2.fused_plane_encode(rgb, iqt, geom)
+    assert k2.LAUNCHES.value == before + 1
+    want = k2.fused_plane_encode_plain(rgb, iqt, geom)
+    assert len(got) == len(want) == len(geom.sampling)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k2_kernel_equals_plain_on_unusual_geometry(cuda):
+    """Luma at half height and Cb, Cr sampled unlike each other: the kernel
+    compiled for any box factors (the usual ones have kernels of their own)."""
+    geom = PipelineGeometry(width=520, height=200, mcus_x=33, mcus_y=13,
+                            h_max=2, v_max=2,
+                            sampling=((2, 1), (1, 2), (1, 1)))
+    rng = np.random.default_rng(8)
+    rgb = torch.from_numpy(rng.integers(
+        0, 256, (2, 3, *k1.padded_size(geom)), dtype=np.uint8)).to(cuda)
+    iqt = torch.from_numpy((1.0 / rng.integers(1, 64, (2, 3, 64)))
+                           .astype(np.float32)).to(cuda)
+    got = k2.fused_plane_encode(rgb, iqt, geom)
+    want = k2.fused_plane_encode_plain(rgb, iqt, geom)
+    assert [tuple(g.shape) for g in got] == [(2, 128, 768), (2, 256, 384),
+                                             (2, 128, 384)]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("kwargs", [
