@@ -25,7 +25,12 @@ frames), times K1 at 8 and 62 4K frames, K3 at 1, 8 and 32, K4 and K2 at
   tier is held to K3 and the C++ decoder on eight frames;
 - the bare dequant + IDCT of ``bench.py``'s roofline shape, a [4096, 3840]
   int16 plane, through ``idct_only_kernel`` (K5) and
-  ``idct_only_kernel_roll`` (K6), held to a float64 reference.
+  ``idct_only_kernel_roll`` (K6), each held to its plain version bit for
+  bit and to a float64 reference, timed queued and after an L2 flush.
+
+Between the last two, ``decode_bytes``' default route (the compat decode,
+no kernel of its own) decodes a 4K frame and two 512x384 images on the card
+and is held within +-1 u8 of the fast path and of the CPU.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
@@ -43,10 +48,11 @@ line describing the kernels, and last a JSON result line.
 
     python3 chip_smoke.py --times [--package DIR]
 
-only builds K2, K3 and K4 and times them at those shapes (no checks, no
-result line), from this checkout's package or from the ``jpeg_tpu_torch`` of
-another checkout ``DIR``: two versions of a kernel are compared by running
-both on the same card, one after the other, in turns.
+only builds the kernels and times them at those shapes (K1 at 8 4K frames,
+K2-K6 as above; no checks, no result line), from this checkout's package or
+from the ``jpeg_tpu_torch`` of another checkout ``DIR``: two versions of a
+kernel are compared by running both on the same card, one after the other,
+in turns.
 """
 
 from __future__ import annotations
@@ -150,6 +156,38 @@ def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1,
     return float(np.median(times))
 
 
+def cuda_ms_flushed(fn, reps: int, warmup: int = 1) -> float:
+    """Median milliseconds of one ``fn()`` after a 256 MB write that leaves
+    none of its inputs in the 50 MB L2 cache; the write and ~20 ms of
+    sleep (so that the call is enqueued before its start event is reached)
+    lie outside the event pair."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        flush.zero_()
+        torch.cuda._sleep(40_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def same_bits(a, b) -> bool:
+    """Equal float32 tensors bit for bit (the sign of a zero included)."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -166,6 +204,25 @@ def bound(n_bytes: int, n_ops: float = 0.0) -> dict:
 def share(ms: float, b: dict) -> str:
     return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
             f"{b['bound_ms'] / ms:.4f} of it")
+
+
+def k1_inputs(plans, dev):
+    """K1's inputs for a batch of equal-geometry plans: (int16 planes per
+    component [B, rows, stride] and tables [B, n_comp, 64] on ``dev``, the
+    geometry, the C++ decoder's planes per image)."""
+    import torch
+
+    from jpeg_tpu_torch import runtime
+    from jpeg_tpu_torch.models.decoder import PipelineGeometry
+    from jpeg_tpu_torch.ops import fused_plane as k1
+
+    geom = PipelineGeometry.of(plans[0])
+    hp = [[p.copy() for p in runtime.native_decode_planes(pl)] for pl in plans]
+    planes = [torch.from_numpy(np.stack([h[c] for h in hp])).to(dev)
+              for c in range(len(hp[0]))]
+    qtabs = torch.from_numpy(np.stack(
+        [k1.plan_quant_patterns(pl, geom) for pl in plans])).to(dev)
+    return planes, qtabs, geom, hp
 
 
 def corrupt_copies(plan, n: int, seed: int) -> list:
@@ -193,7 +250,6 @@ def run() -> list[dict]:
     from jpeg_tpu_torch.entropy import device_kernel as k4
     from jpeg_tpu_torch.io.container import parse_jpeg
     from jpeg_tpu_torch.models.decoder import (
-        PipelineGeometry,
         coefficient_planes_from_blocks,
         decode_bytes,
     )
@@ -238,18 +294,8 @@ def run() -> list[dict]:
     #    takes (two small seeded images each, encoded by the port, both
     #    roundings), then each bucket of the main path: the two 512x384
     #    images and the CORPUS_4K frames.
-    def k1_inputs(plans):
-        geom = PipelineGeometry.of(plans[0])
-        hp = [[p.copy() for p in runtime.native_decode_planes(pl)]
-              for pl in plans]
-        planes = [torch.from_numpy(np.stack([h[c] for h in hp])).to(dev)
-                  for c in range(len(hp[0]))]
-        qtabs = torch.from_numpy(np.stack(
-            [k1.plan_quant_patterns(pl, geom) for pl in plans])).to(dev)
-        return planes, qtabs, geom, hp
-
     def k1_check(label, plans, roundings=("truncate",)):
-        planes, qtabs, geom, hp = k1_inputs(plans)
+        planes, qtabs, geom, hp = k1_inputs(plans, dev)
         for rounding in roundings:
             out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding)
             out_p = k1.fused_plane_decode_plain(planes, qtabs, geom, rounding)
@@ -282,7 +328,8 @@ def run() -> list[dict]:
     plans4k = [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(CORPUS_4K)]
     planes, qtabs, geom, host_planes = k1_check(f"{CORPUS_4K}x4K", plans4k)
     k1_err = 0
-    k1_ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2)
+    k1_ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2,
+                    queued=True)
     k1_plain_ms = cuda_ms(lambda: k1.fused_plane_decode_plain(planes, qtabs, geom), 3, 1)
     k1_bnd = k1_bound(planes, qtabs, geom)
     print(f"K1 {CORPUS_4K}x4K bucket: kernel {k1_ms:.4f} ms, plain "
@@ -290,7 +337,8 @@ def run() -> list[dict]:
           flush=True)
     # The same at one device claim's size (contiguous leading slices).
     p8, q8 = [p[:BATCH] for p in planes], qtabs[:BATCH]
-    k1_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom), 10, 2)
+    k1_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom), 10, 2,
+                   queued=True)
     k1_8_plain = cuda_ms(lambda: k1.fused_plane_decode_plain(p8, q8, geom), 3, 1)
     k1_8_bnd = k1_bound(p8, q8, geom)
     print(f"K1 {BATCH}x4K: kernel {k1_8:.4f} ms, plain {k1_8_plain:.3f} ms "
@@ -357,7 +405,8 @@ def run() -> list[dict]:
             [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(frames)])
         t = lanes if frames == BATCH else k3.lane_tensors(b, dev)
         m = len(b.lane_start)
-        ms = cuda_ms(lambda: k3.decode_lanes(t, m, b.total_rows), 5, 1)
+        ms = cuda_ms(lambda: k3.decode_lanes(t, m, b.total_rows), 5, 1,
+                     queued=True)
         bnd = bound(nbytes(*(t[k] for k in K3_INPUTS)) + b.total_rows * 256 + m)
         k3_time[frames] = (ms, bnd)
         print(f"K3 {frames}x4K ({m} lanes): kernel {ms:.4f} ms (median, CUDA "
@@ -438,7 +487,10 @@ def run() -> list[dict]:
     k4_launches, k4_4k_err, k4_ms, k4_plain_ms, k4_bnd = single_frame_path(
         read(FRAMES_4K[0]), dev)
 
-    # 10. K5 and K6 at the roofline instrument's shape.
+    # 10. decode_bytes' default route, the compat decode.
+    compat_path()
+
+    # 11. K5 and K6 at the roofline instrument's shape.
     k5, k6 = idct_roofline(dev)
 
     print(card, flush=True)  # nvidia-smi name, power limit
@@ -553,7 +605,8 @@ def check_k4_4k(plans, host_planes, geom, k3_coeffs, k3_batch, k3_ms,
     lanes_1 = k3.lane_tensors(one, dev)
     ms_n = cuda_ms(lambda: run_n(*args_n), 5, 1, queued=True)
     ms_1 = cuda_ms(lambda: run_1(*args_1), 5, 1, queued=True)
-    k3_1 = cuda_ms(lambda: k3.decode_lanes(lanes_1, s_1, one.total_rows), 5, 1)
+    k3_1 = cuda_ms(lambda: k3.decode_lanes(lanes_1, s_1, one.total_rows), 5, 1,
+                   queued=True)
     bnd_n = k4_bound(args_n, mm_n, plans[0].blocks_per_mcu)
     print(f"K4 {len(plans)}x4K ({s_n} lanes): {ms_n:.3f} ms, "
           f"{share(ms_n, bnd_n)}; 1x4K ({s_1} lanes): {ms_1:.3f} ms. K3 at the "
@@ -630,15 +683,49 @@ def single_frame_path(item: bytes, dev) -> tuple[int, int, float, float, dict]:
     return k4_launches, err, ms, plain_ms, bnd
 
 
+def compat_path() -> None:
+    """``decode_bytes``' default route, the compat decode (C++ entropy into
+    zigzag blocks; on the card one fp32 product per component with the fused
+    dequant + IDCT matrix, assembly, upsample, colour), on the first 4K
+    fixture and the 512x384 colour and gray fixtures: within +-1 u8 of
+    ``path="fast"`` on the card and of the same route on the CPU. Prints the
+    count of differing values and the card route's host-clock time."""
+    import torch
+
+    from jpeg_tpu_torch import decode_bytes
+
+    for name in (FRAMES_4K[0], SMALL_NO_RST, SMALL_RST[1]):
+        data = read(name)
+        decode_bytes(data, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = decode_bytes(data, device="cuda")
+        wall = time.perf_counter() - t0
+        for label, want in (
+                ("path='fast'", decode_bytes(data, path="fast", device="cuda")),
+                ("device='cpu'", decode_bytes(data, device="cpu"))):
+            diff = (np.abs(got.astype(np.int16) - want.astype(np.int16))
+                    if got.shape == want.shape else np.full(1, 256))
+            check(int(diff.max()) <= 1,
+                  f"compat decode_bytes(device='cuda') of {name} vs {label}: "
+                  f"within +-1 u8, {int((diff > 0).sum())} of {diff.size} "
+                  "values differ")
+        print(f"compat decode_bytes(device='cuda') of {name}: "
+              f"{wall * 1e3:.3f} ms (host clock, bytes to RGB on the host)",
+              flush=True)
+
+
 def idct_roofline(dev) -> tuple[dict, dict]:
     """K5 and K6 on ``bench_idct_roofline``'s [4096, 3840] int16 plane
     (seed 0, values in [-512, 512), quant table 1..64): each equals its plain
-    version, K5 equals K6 by value, both sit within IDCT_REL_TOL of a float64
-    reference. Beside them the closest library route is timed, which the
-    port never calls: a cast to fp32, cuDNN's convolution with an 8x8,
-    stride-8 kernel whose 64 filters fold the dequantisation into the IDCT
-    basis, and ``pixel_shuffle(8)`` (two calls after the cast; TF32 off).
-    Returns the measured fields of the K5 and K6 records."""
+    version bit for bit, K5 equals K6 by value, both sit within IDCT_REL_TOL
+    of a float64 reference. Each is timed with 20 launches queued in a row
+    and, one launch at a time, after an L2 flush. Beside them the closest
+    library route is timed, which the port never calls: a cast to fp32,
+    cuDNN's convolution with an 8x8, stride-8 kernel whose 64 filters fold
+    the dequantisation into the IDCT basis, and ``pixel_shuffle(8)`` (two
+    calls after the cast; TF32 off). Returns the measured fields of the K5
+    and K6 records."""
     import torch
 
     from jpeg_tpu_torch.ops import idct_only as k56
@@ -674,8 +761,8 @@ def idct_roofline(dev) -> tuple[dict, dict]:
         out = outs[name]
         want = plain(x, qpat)
         errs[name] = float((out - want).abs().max())
-        check(torch.equal(out, want), f"{name} vs plain at [{rows}, {cols}]: "
-              f"equal values (max abs err {errs[name]})")
+        check(same_bits(out, want), f"{name} vs plain at [{rows}, {cols}]: "
+              f"bit for bit (max abs err {errs[name]})")
         ref_err = float((out.double() - ref).abs().max())
         check(bool(torch.isfinite(out).all()) and ref_err <= bar,
               f"{name} vs float64 reference: max abs err {ref_err:.3e} <= "
@@ -690,23 +777,26 @@ def idct_roofline(dev) -> tuple[dict, dict]:
         return fn.pixel_shuffle(y, 8).view(rows, cols)
 
     lib_err = float((library().double() - ref).abs().max())
-    lib_ms = cuda_ms(library, 5, 3, inner=20)
+    lib_ms = cuda_ms(library, 5, 3, inner=20, queued=True)
     print(f"library route (cast + cuDNN conv2d + pixel_shuffle) [{rows}, "
-          f"{cols}]: {lib_ms:.4f} ms (median, CUDA events, 20 in a row); max "
+          f"{cols}]: {lib_ms:.4f} ms (median, CUDA events, 20 queued in a row); max "
           f"abs err vs float64 {lib_err:.3e}", flush=True)
     del ref, outs, want, out
     records, blocks = [], rows * cols // 64
     bnd = bound(nbytes(x, qpat) + rows * cols * 4, rows * cols * OPS_PER_BLOCK / 64)
     for name, (run, plain) in runs.items():
         plain_ms = cuda_ms(lambda: plain(x, qpat), 3, 1)
-        ms = cuda_ms(lambda: run(x, qpat), 5, 3, inner=20)
+        ms = cuda_ms(lambda: run(x, qpat), 10, 3, inner=20, queued=True)
+        cold = cuda_ms_flushed(lambda: run(x, qpat), 20)
         print(f"{name} [{rows}, {cols}]: kernel {ms:.4f} ms = "
-              f"{blocks / (ms / 1e3):.4e} blocks/s, plain {plain_ms:.3f} ms = "
-              f"{blocks / (plain_ms / 1e3):.4e} blocks/s; {share(ms, bnd)} "
-              "(median, CUDA events, 20 launches in a row)", flush=True)
+              f"{blocks / (ms / 1e3):.4e} blocks/s (20 launches queued in a "
+              f"row), {cold:.4f} ms a launch after an L2 flush = "
+              f"{blocks / (cold / 1e3):.4e} blocks/s; plain {plain_ms:.3f} ms; "
+              f"{share(ms, bnd)}; flushed {bnd['bound_ms'] / cold:.4f} of it "
+              "(medians, CUDA events)", flush=True)
         records.append({"launches": launches[name], "max_abs_err": errs[name],
-                        "ms": ms, "plain_ms": plain_ms, **bnd,
-                        "library_ms": lib_ms})
+                        "ms": ms, "ms_l2_flushed": cold, "plain_ms": plain_ms,
+                        **bnd, "library_ms": lib_ms})
     return records[0], records[1]
 
 
@@ -802,25 +892,48 @@ def check_k2(frames, dev) -> dict:
 
 
 def kernel_times(package_dir: str) -> None:
-    """``--times``: K2, K3 and K4 of the ``jpeg_tpu_torch`` under
-    ``package_dir``, built and timed alone at the smoke's shapes (1 and 8 4K
-    frames; K3 also 32), launches queued in a row behind a busy card so the
-    wrappers' host time stays out; then the two passes of K3 and K4 apart.
-    Prints one line per time."""
+    """``--times``: every kernel of the ``jpeg_tpu_torch`` under
+    ``package_dir``, built and timed alone at the smoke's shapes (K1 at 8
+    4K frames; K2, K4 at 1 and 8; K3 at 1, 8 and 32; K5 and K6 at
+    [4096, 3840], also one launch at a time after an L2 flush), launches
+    queued in a row behind a busy card so the wrappers' host time stays out;
+    then the two passes of K3 and K4 apart. Prints one line per time."""
     sys.path.insert(0, package_dir)
     import torch
 
     import jpeg_tpu_torch
+    from jpeg_tpu_torch import runtime
     from jpeg_tpu_torch.entropy import device_huffman as k3
     from jpeg_tpu_torch.entropy import device_kernel as k4
     from jpeg_tpu_torch.io.container import parse_jpeg
     from jpeg_tpu_torch.ops import fused_encode as k2
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.ops import idct_only as k56
 
     dev = torch.device("cuda")
     print(f"package: {os.path.dirname(os.path.abspath(jpeg_tpu_torch.__file__))}")
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(m.load_kernel) for m in (k2, k3, k4)]:
+    loads = (runtime.load, k1.load_kernel, k2.load_kernel, k3.load_kernel,
+             k4.load_kernel, k56.load_kernel)
+    with ThreadPoolExecutor(len(loads)) as pool:
+        for fut in [pool.submit(load) for load in loads]:
             fut.result()
+    rows, cols = IDCT_SHAPE
+    x = torch.from_numpy(np.random.default_rng(0).integers(-512, 512, (rows, cols))
+                         .astype(np.int16)).to(dev)
+    qpat = torch.from_numpy(k56.quant_pattern(np.arange(1, 65), 128, 256)).to(dev)
+    for name, run in (("K5", k56.idct_only_kernel(rows, cols)),
+                      ("K6", k56.idct_only_kernel_roll(rows, cols))):
+        ms = cuda_ms(lambda: run(x, qpat), 10, 3, inner=20, queued=True)
+        cold = cuda_ms_flushed(lambda: run(x, qpat), 20)
+        print(f"times {name} [{rows}, {cols}]: {ms:.4f} ms; after an L2 "
+              f"flush {cold:.4f} ms", flush=True)
+    del x, qpat
+    planes, qtabs, geom, _ = k1_inputs(
+        [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(BATCH)], dev)
+    ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2,
+                 inner=10, queued=True)
+    print(f"times K1 {BATCH}x4K: {ms:.4f} ms", flush=True)
+    del planes, qtabs
     frames = [synthetic_image(3840, 2160, seed=i % 2) for i in range(BATCH)]
     geom, rgb, iq = k2_inputs(frames, dev, subsampling=(2, 2))
     for n in (1, BATCH):

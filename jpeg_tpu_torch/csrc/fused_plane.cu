@@ -27,9 +27,8 @@
 // sum rounded separately (__fmul_rn / __fadd_rn, and the library is built
 // with --fmad=false) and summed in index order, so the plain PyTorch twin
 // (ops/fused_plane.py::fused_plane_decode_plain) computes the same values.
-// No TF32, no tensor cores. The basis is a kernel argument, so its reads
-// come from the constant bank; its mirror symmetry lets one rounded product
-// serve two outputs (tests/test_torch_fused_plane.py checks it). The colour stage's division by 0.587 and
+// No TF32, no tensor cores. The IDCT is idct8x8.cuh's, shared with K5 and
+// K6; its basis is a kernel argument (constant bank). The colour stage's division by 0.587 and
 // its u8 conversion take shorter routes that give the same bits (see
 // divide_green and to_u8).
 //
@@ -43,15 +42,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "idct8x8.cuh"
+
 namespace {
 
 constexpr int kTileW = 256;  // Y-resolution columns per cell
 constexpr int kThreads = 128;
 constexpr int kMaxComp = 3;
-
-struct Basis {
-  float a[64];  // A[u][x], row-major
-};
 
 // Per component: its plane and where its blocks sit in a cell.
 struct Comp {
@@ -168,50 +165,15 @@ fused_plane_kernel(const Geometry g,
         f[v][u] = __fmul_rn(static_cast<float>(coef), q[v * 8 + u]);
       }
     }
-    // Vertical pass: t[y][u] = sum_v A[v][y] * F[v][u]. The float32 basis
-    // is mirror-symmetric, A[v][7-y] = (-1)^v A[v][y] bit for bit, so each
-    // product also serves row 7-y, negated for odd v: the same rounded
-    // terms as the twin's, summed in the same order, with half the
-    // products.
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      float col[8];
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const float p0 = __fmul_rn(bas.a[y], f[0][u]);
-        float lo = p0, hi = p0;
-#pragma unroll
-        for (int v = 1; v < 8; ++v) {
-          const float p = __fmul_rn(bas.a[v * 8 + y], f[v][u]);
-          lo = __fadd_rn(lo, p);
-          hi = __fadd_rn(hi, (v & 1) ? -p : p);
-        }
-        col[y] = lo;
-        col[7 - y] = hi;
-      }
-#pragma unroll
-      for (int y = 0; y < 8; ++y) f[y][u] = col[y];
-    }
-    // Horizontal pass: s[y][x] = sum_u t[y][u] * A[u][x], a row at a time
-    // into the cell's pixels.
+    // Both passes in registers (idct8x8.cuh), a row at a time into the
+    // cell's pixels.
+    idct8_columns(f, bas.a);
     const int cols = c.nbx * 8;
     float* dst = tile_px + c.tile + by * 8 * cols;
 #pragma unroll
     for (int y = 0; y < 8; ++y) {
       float s[8];
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {  // columns x and 7-x, as above
-        const float p0 = __fmul_rn(f[y][0], bas.a[x]);
-        float lo = p0, hi = p0;
-#pragma unroll
-        for (int u = 1; u < 8; ++u) {
-          const float p = __fmul_rn(f[y][u], bas.a[u * 8 + x]);
-          lo = __fadd_rn(lo, p);
-          hi = __fadd_rn(hi, (u & 1) ? -p : p);
-        }
-        s[x] = lo;
-        s[7 - x] = hi;
-      }
+      idct8_row<false>(f[y], bas.a, s);
       float* row = dst + y * cols;
       *reinterpret_cast<float4*>(row + chunk_at(2 * bx)) =
           make_float4(s[0], s[1], s[2], s[3]);
@@ -345,8 +307,12 @@ int jt_fused_plane_decode(const void* const* planes, const int64_t* rows,
   for (int i = 0; i < 64; ++i) bas.a[i] = basis[i];
   int blocks = 0, floats = 0;
   for (int c = 0; c < n_comp; ++c) {
-    const int fx = h_max / h[c];
-    if (fx != 1 && fx != 2 && fx != 4)
+    // Whole upsampling factors of 1, 2 or 4 on both axes, as K2's launcher
+    // takes them.
+    if (h[c] < 1 || v[c] < 1 || h_max % h[c] != 0 || v_max % v[c] != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int fx = h_max / h[c], fy = v_max / v[c];
+    if ((fx != 1 && fx != 2 && fx != 4) || (fy != 1 && fy != 2 && fy != 4))
       return static_cast<int>(cudaErrorInvalidValue);
     Comp& k = g.c[c];
     k.ptr = static_cast<const int16_t*>(planes[c]);
@@ -356,7 +322,6 @@ int jt_fused_plane_decode(const void* const* planes, const int64_t* rows,
     k.nbx = kTileW / fx / 8;
     k.nbx_log2 = fx == 1 ? 5 : (fx == 2 ? 4 : 3);
     k.fx_log2 = fx == 1 ? 0 : (fx == 2 ? 1 : 2);
-    const int fy = v_max / v[c];
     k.fy_log2 = fy == 1 ? 0 : (fy == 2 ? 1 : 2);
     k.first = blocks;
     k.tile = floats;

@@ -1,157 +1,146 @@
 // K5 and K6: bare dequant + 8x8 IDCT for Hopper (sm_90a), int16 plane in,
-// fp32 plane out. Built with --fmad=false: every product is rounded on its
-// own (__fmul_rn / __fadd_rn), in the order of the plain PyTorch twins of
-// jpeg_tpu_torch/ops/idct_only.py, so each kernel matches its twin bit for
-// bit.
+// fp32 plane out, one templated body for both.
 //
-// K5 replaces jpeg_tpu/ops/pallas_kernels.py::idct_only_kernel, the sandwich
-// formulation: kron(I, A^T) @ F @ kron(I, A) on the MXU, per [128, 256]
-// cell. Here a block of 64 x 8 threads stages an 8 x 64 tile of dequantised
-// coefficients in shared memory, and a thread per output pixel does the
-// 8-term column product, then (after a barrier) the 8-term row product,
-// against the basis in constant memory. No kron matrices: 16 products per
-// pixel instead of the sandwich's 384. The row product reads a shared copy
-// of the basis: its lanes differ in x, and constant memory serialises a
-// warp's distinct addresses (read from constant memory there, the kernel
-// took 0.29 ms at [4096, 3840] on the H100, K6 0.08 ms).
+// K5 replaces jpeg_tpu/ops/pallas_kernels.py::idct_only_kernel (the
+// sandwich formulation, kron(I, A^T) @ F @ kron(I, A) on the MXU per
+// [128, 256] cell); K6 replaces pallas_kernels.py::idct_only_kernel_roll
+// (idct_roll_tile: 15 shift+mask terms per axis). Neither structure carries
+// over: the kron matrices and the rolls exist because Mosaic has no
+// reshapes.
 //
-// K6 replaces pallas_kernels.py::idct_only_kernel_roll (idct_roll_tile):
-// 15 shift+mask passes per axis. A thread holds one column of an 8-row block
-// strip in registers; the row pass shifts within those registers, the column
-// pass exchanges values by __shfl_sync within 8-lane groups (the TPU's lane
-// rotate), with the masks of roll_masks in constant memory. A wrapped term
-// meets a zero mask, as on the TPU, so it adds an exact zero.
+// Exactness (built with --fmad=false): K5's twin (ops/idct_only.py::
+// idct_only_plain) sums each pass's eight rounded products in ascending
+// order from the first product. K6's twin adds 15 products per axis to a +0
+// start; the seven masked ones are 0 x finite = +-0, which leave a sum that
+// started at +0 unchanged (it never becomes -0), so K6 is the same eight
+// terms from a +0 start: K5's values with -0 turned into +0
+// (tests/test_torch_idct_only.py holds both models to the twins bit for
+// bit). The IDCT is idct8x8.cuh's (shared with K1), and K6 differs from K5
+// only in its template argument.
 //
-// Bound on the H100: device memory, 2 B in + 4 B out per pixel (the dequant
-// pattern, 128 KB, stays in L2). Both kernels read and write each row of a
-// tile as contiguous 128-byte / 256-byte runs (K5) or 512 B / 1 KB (K6).
+// Bound on the H100: device memory, 2 B in + 4 B out per pixel, 94.5 MB at
+// [4096, 3840] (0.0282 ms at 3.35 TB/s). What the design does about it:
+//   - bytes in flight: a thread owns one 8x8 block and issues its eight
+//     16-byte row loads at once (128 B a thread); a warp takes 32 blocks
+//     side by side, so each load instruction reads 512 contiguous bytes;
+//   - the dequant pattern qpat [128, 256] (any values: the twin takes any)
+//     is read as float4 at [(by & 15) * 8 + r][(bx & 31) * 8 + c], no
+//     modulo; a thread block's warps take consecutive 8 x 256 strips, so
+//     they share the pattern's rows in L1;
+//   - both passes in registers (~1,500 fp32 instructions a block, ~0.011 ms
+//     of issue over the plane);
+//   - stores of whole lines: each row of a warp's strip goes out through
+//     shared memory as 512 contiguous bytes an instruction; the plane's
+//     loads and stores are streaming (__ldcs / __stcs), as neither is read
+//     again. Measured against two float4 stores a row straight from
+//     registers, and against both without the streaming hints, in PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "idct8x8.cuh"
 
 namespace {
 
 constexpr int kCellRows = 128;  // the dequant pattern: one TPU grid cell
 constexpr int kCellCols = 256;
-constexpr int kTileCols = 64;   // K5: a block's tile is 8 x kTileCols
-constexpr int kRollCols = 256;  // K6: a block's strip is 8 x kRollCols
+constexpr int kWarps = 4;       // warps per thread block, one strip each
+constexpr int kThreads = 32 * kWarps;
 
-__constant__ float c_basis[64];       // A[u][x]
-__constant__ float c_mrow[8 * 15];    // [x][d + 7]: A[x + d][x] or 0
-__constant__ float c_mcol[15 * 8];    // [d + 7][x]: the same by columns
-
-__device__ __forceinline__ float dequant(const int16_t* x, const float* qpat,
-                                         int64_t row, int64_t col,
-                                         int cols) {
-  return __fmul_rn(static_cast<float>(x[row * cols + col]),
-                   qpat[(row % kCellRows) * kCellCols + col % kCellCols]);
-}
-
-__global__ void __launch_bounds__(kTileCols * 8)
+template <bool kZeroStart>
+__global__ void __launch_bounds__(kThreads)
 idct_only_kernel(const int16_t* __restrict__ x, const float* __restrict__ qpat,
-                 float* __restrict__ out, int cols) {
-  __shared__ float f[8][kTileCols];
-  __shared__ float t[8][kTileCols];
-  __shared__ float basis[64];  // for the row product, whose lanes differ in x
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int64_t row = static_cast<int64_t>(blockIdx.y) * 8 + ty;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kTileCols + tx;
-  if (ty == 0) basis[tx] = c_basis[tx];  // kTileCols == 64
-  f[ty][tx] = dequant(x, qpat, row, col, cols);
-  __syncthreads();
-  // Column product: t[y][u] = sum_v A[v][y] * F[v][u], v ascending.
-  float acc = __fmul_rn(c_basis[ty], f[0][tx]);
-#pragma unroll
-  for (int v = 1; v < 8; ++v)
-    acc = __fadd_rn(acc, __fmul_rn(c_basis[v * 8 + ty], f[v][tx]));
-  t[ty][tx] = acc;
-  __syncthreads();
-  // Row product: s[y][x] = sum_u t[y][u] * A[u][x], u ascending.
-  const int b0 = tx & ~7, xx = tx & 7;
-  float s = __fmul_rn(t[ty][b0], basis[xx]);
-#pragma unroll
-  for (int u = 1; u < 8; ++u)
-    s = __fadd_rn(s, __fmul_rn(t[ty][b0 + u], basis[u * 8 + xx]));
-  out[row * cols + col] = s;
-}
-
-__global__ void __launch_bounds__(kRollCols)
-idct_only_roll_kernel(const int16_t* __restrict__ x,
-                      const float* __restrict__ qpat, float* __restrict__ out,
-                      int cols) {
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kRollCols + threadIdx.x;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * 8;
-  float f[8], acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = dequant(x, qpat, row0 + i, col, cols);
-  // Row pass: acc[i] = sum_d mrow[i][d] * f[i + d], d = -7..7 ascending.
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float s = 0.0f;
-#pragma unroll
-    for (int d = -7; d <= 7; ++d)
-      s = __fadd_rn(s, __fmul_rn(c_mrow[i * 15 + d + 7], f[(i + d) & 7]));
-    acc[i] = s;
-  }
-  // Column pass: out[i] at column c = sum_d mcol[d][c % 8] * acc[i] at
-  // column c + d, fetched from the neighbouring lane of the 8-lane group.
+                 const Basis bas, float* __restrict__ out, int cols) {
+  // Warp w of the grid takes the strip of block row w / strips_x, block
+  // columns (w % strips_x) * 32 .. + 31; lane l its block column + l.
   const int lane = threadIdx.x & 31;
-  const int group = lane & ~7, xx = lane & 7;
-  float m[15];
+  const int strips_x = cols / kCellCols;
+  const int strip = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int by = strip / strips_x;
+  const int bx = (strip - by * strips_x) * 32 + lane;
+  const int64_t base = static_cast<int64_t>(by) * 8 * cols + bx * 8;
+  const int16_t* src = x + base;
+  int4 raw[8];
 #pragma unroll
-  for (int d = 0; d < 15; ++d) m[d] = c_mcol[d * 8 + xx];
+  for (int r = 0; r < 8; ++r)  // read once: streaming, keep L1 for qpat
+    raw[r] = __ldcs(reinterpret_cast<const int4*>(src + static_cast<int64_t>(r) * cols));
+  // Pattern rows (by % 16) * 8 + r, columns (bx % 32) * 8 + c = lane * 8 + c.
+  const float* q = qpat + (by & 15) * 8 * kCellCols + lane * 8;
+  float f[8][8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float s = 0.0f;
+  for (int r = 0; r < 8; ++r) {
+    const float4 q0 = __ldg(reinterpret_cast<const float4*>(q + r * kCellCols));
+    const float4 q1 = __ldg(reinterpret_cast<const float4*>(q + r * kCellCols + 4));
+    const float qs[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const int w[4] = {raw[r].x, raw[r].y, raw[r].z, raw[r].w};
 #pragma unroll
-    for (int d = -7; d <= 7; ++d) {
-      const float v = __shfl_sync(0xffffffffu, acc[i], group | ((xx + d) & 7));
-      s = __fadd_rn(s, __fmul_rn(m[d + 7], v));
+    for (int c = 0; c < 8; ++c) {
+      const int16_t coef = static_cast<int16_t>(
+          (c & 1) ? (w[c >> 1] >> 16) : (w[c >> 1] & 0xFFFF));
+      f[r][c] = __fmul_rn(static_cast<float>(coef), qs[c]);
     }
-    out[(row0 + i) * cols + col] = s;
+  }
+  idct8_columns(f, bas.a);
+  // Each output row goes through a 1 KB shared row of the warp (two, used
+  // in turn, so one __syncwarp a row suffices): lane l puts its block's
+  // two float4 at l and 32 + ((l + 4) & 31) (free of bank conflicts for
+  // both the writes and the reads below), then the warp stores the strip's
+  // row as 64 float4, 512 contiguous bytes an instruction.
+  __shared__ float4 stage[kWarps][2][64];
+  float* dst = out + base - lane * 8;  // the strip's first column
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+    float s[8];
+    idct8_row<kZeroStart>(f[y], bas.a, s);
+    float4* b = stage[threadIdx.x >> 5][y & 1];
+    b[lane] = make_float4(s[0], s[1], s[2], s[3]);
+    b[32 + ((lane + 4) & 31)] = make_float4(s[4], s[5], s[6], s[7]);
+    __syncwarp();
+    float4* row = reinterpret_cast<float4*>(dst + static_cast<int64_t>(y) * cols);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {  // float4 t of the row: block t / 2, half t % 2
+      const int t = lane + 32 * k, blk = t >> 1;
+      __stcs(row + t, (t & 1) ? b[32 + ((blk + 4) & 31)] : b[blk]);
+    }
   }
 }
 
-bool bad_shape(int rows, int cols) {
-  return rows <= 0 || cols <= 0 || rows % kCellRows || cols % kCellCols;
+template <bool kZeroStart>
+int launch(const void* x, const void* qpat, const float* basis, void* out,
+           int32_t rows, int32_t cols, void* stream) {
+  if (rows <= 0 || cols <= 0 || rows % kCellRows || cols % kCellCols ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(qpat) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Basis bas;
+  for (int i = 0; i < 64; ++i) bas.a[i] = basis[i];
+  // rows / 8 strips of cols / 256: a multiple of 16, so of kWarps.
+  const int64_t strips = static_cast<int64_t>(rows / 8) * (cols / kCellCols);
+  idct_only_kernel<kZeroStart>
+      <<<static_cast<unsigned>(strips / kWarps), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int16_t*>(x), static_cast<const float*>(qpat), bas,
+          static_cast<float*>(out), cols);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Copy the basis A [8][8] and the period-8 masks mrow [8][15], mcol [15][8]
-// (host pointers) into this device's constant memory. Returns the CUDA error.
-int jt_idct_only_tables(const float* basis, const float* mrow,
-                        const float* mcol) {
-  cudaError_t e = cudaMemcpyToSymbol(c_basis, basis, sizeof(c_basis));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_mrow, mrow, sizeof(c_mrow));
-  if (e == cudaSuccess) e = cudaMemcpyToSymbol(c_mcol, mcol, sizeof(c_mcol));
-  return static_cast<int>(e);
-}
-
 // Launch K5 on `stream`: x int16 [rows, cols], qpat f32 [128, 256], out f32
-// [rows, cols], device pointers. Returns cudaGetLastError() (0 = launched).
-int jt_idct_only(const void* x, const void* qpat, void* out, int32_t rows,
-                 int32_t cols, void* stream) {
-  if (bad_shape(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cols / kTileCols, rows / 8), block(kTileCols, 8);
-  idct_only_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(x), static_cast<const float*>(qpat),
-      static_cast<float*>(out), cols);
-  return static_cast<int>(cudaGetLastError());
+// [rows, cols] (device pointers, 16-byte aligned, rows % 128 == cols % 256
+// == 0); basis the host's 64 f32, A[u][x]. Returns cudaGetLastError() (0 =
+// launched).
+int jt_idct_only(const void* x, const void* qpat, const float* basis,
+                 void* out, int32_t rows, int32_t cols, void* stream) {
+  return launch<false>(x, qpat, basis, out, rows, cols, stream);
 }
 
 // Launch K6 on `stream`; the same arguments as jt_idct_only.
-int jt_idct_only_roll(const void* x, const void* qpat, void* out, int32_t rows,
-                      int32_t cols, void* stream) {
-  if (bad_shape(rows, cols)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(cols / kRollCols, rows / 8);
-  idct_only_roll_kernel<<<grid, kRollCols, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(x), static_cast<const float*>(qpat),
-      static_cast<float*>(out), cols);
-  return static_cast<int>(cudaGetLastError());
+int jt_idct_only_roll(const void* x, const void* qpat, const float* basis,
+                      void* out, int32_t rows, int32_t cols, void* stream) {
+  return launch<true>(x, qpat, basis, out, rows, cols, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,21 @@
-"""The decode model: JPEG bytes -> RGB u8, through the fast path.
+"""The decode model: JPEG bytes -> RGB u8, through the compat or the fast path.
 
 Counterpart of ``jpeg_tpu/models/decoder.py`` for 8-bit baseline Huffman
-streams (YCbCr or gray): entropy decode into int16 coefficient planes on the
-host (C++ runtime) or on the device (K3 + :func:`coefficient_planes_from_blocks`),
-then K1 (``ops/fused_plane.py``) for dequant, IDCT, upsample and colour.
+streams (YCbCr or gray), with its defaults:
 
-Routes of the JAX package that lead off this slice raise
+- the compat path (``path="compat"``, the default of :func:`decode_bytes`
+  and the route of :func:`decode_file`): C++ entropy decode into
+  ``[total_blocks, 64]`` int32 blocks (:func:`decode_coefficients_host`),
+  then per component one ``[n, 64] @ [64, 64]`` fp32 product with the fused
+  dequant + unzigzag + IDCT matrix (``torch.matmul``, TF32 refused),
+  assembly, replicate upsample and colour (:func:`decode_plan`);
+- the fast path (``path="fast"``, and the corpus decoder's route): entropy
+  decode into int16 coefficient planes on the host (C++ runtime) or on the
+  device (K3 + :func:`coefficient_planes_from_blocks`), then K1
+  (``ops/fused_plane.py``) for dequant, IDCT, upsample and colour. It is
+  within +-1 u8 of the compat path.
+
+Routes of the JAX package that lead off these slices raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item; nothing falls back
 silently.
 """
@@ -18,8 +28,11 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch.io.container import DecodePlan, parse_jpeg
+from jpeg_tpu_torch.ops.color import grayscale_to_rgb, ycbcr_to_rgb
+from jpeg_tpu_torch.ops.idct import fused_idct_matrix
+from jpeg_tpu_torch.ops.upsample import component_plane
 from jpeg_tpu_torch.ops.zigzag import NATURAL_TO_ZIGZAG
-from jpeg_tpu_torch.runtime import native_decode_planes
+from jpeg_tpu_torch.runtime import native_decode_coefficients, native_decode_planes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +87,8 @@ def not_ported(what: str, item: int):
         f"(ROADMAP.md, 'Still to port' item {item})")
 
 
-def check_fast_path(plan: DecodePlan) -> None:
-    """Raise ``NotImplementedError`` for streams off the ported slice (8-bit
+def check_ported(plan: DecodePlan) -> None:
+    """Raise ``NotImplementedError`` for streams off the ported slices (8-bit
     baseline Huffman, YCbCr or gray)."""
     if plan.lossless:
         raise not_ported("lossless (SOF3) decode", 7)
@@ -115,6 +128,76 @@ def coefficient_planes_from_blocks(coeffs: torch.Tensor,
     return planes
 
 
+def plan_matrices(plan: DecodePlan) -> np.ndarray:
+    """[n_comp, 64, 64] f32 fused dequant + unzigzag + IDCT matrices."""
+    return np.stack([fused_idct_matrix(plan.quant_tables[c.quant_id])
+                     for c in plan.components])
+
+
+def decode_coefficients_host(plan: DecodePlan, engine: str = "auto") -> np.ndarray:
+    """Entropy-decode on the host -> ``[total_blocks, 64]`` int32 zigzag
+    blocks, DC prediction applied, MCU stream order.
+
+    ``engine``: ``"auto"`` and ``"native"`` run the C++ runtime (a failed
+    build raises: there is no fallback); ``"oracle"``, the JAX package's
+    NumPy decoder, is not ported. The array is the runtime's per-thread
+    scratch buffer (``native_decode_coefficients``): consume or copy it
+    before this thread decodes another image of the same block count."""
+    check_ported(plan)
+    if engine == "oracle":
+        raise not_ported("engine='oracle'", 1)
+    if engine not in ("auto", "native"):
+        raise ValueError(f"unknown engine {engine!r}")
+    return native_decode_coefficients(plan)
+
+
+def _pipeline(coeffs: torch.Tensor, matrices: torch.Tensor,
+              geom: PipelineGeometry, rounding: str,
+              upsample: str = "replicate") -> torch.Tensor:
+    """coeffs [total_blocks, 64] int32 (zigzag), matrices [n_comp, 64, 64]
+    f32, on one device -> RGB [H, W, 3] u8 there. Per component one product
+    at full fp32, then assembly, upsample, crop and colour."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise ValueError(
+            "the compat decode needs full fp32 products: turn off "
+            "torch.backends.cuda.matmul.allow_tf32 (or "
+            "torch.set_float32_matmul_precision('highest'))")
+    mcu_view = coeffs.to(torch.float32).reshape(geom.n_mcus,
+                                                geom.blocks_per_mcu, 64)
+    planes = []
+    for ci, ((h, v), (off, k)) in enumerate(
+            zip(geom.sampling, geom.component_slot_ranges())):
+        pixels = torch.matmul(mcu_view[:, off : off + k].reshape(-1, 64),
+                              matrices[ci])
+        planes.append(component_plane(
+            pixels.reshape(-1, 8, 8), geom.mcus_y, geom.mcus_x, v, h,
+            geom.v_max, geom.h_max, geom.height, geom.width, upsample))
+    if len(planes) == 1:
+        rgb = grayscale_to_rgb(planes[0], rounding)
+    else:
+        rgb = ycbcr_to_rgb(*planes, rounding=rounding)
+    return rgb.permute(1, 2, 0)
+
+
+def decode_plan(plan: DecodePlan, rounding: str = "truncate",
+                engine: str = "auto", coefficients: np.ndarray | None = None,
+                upsample: str = "replicate", color_space: str = "rgb",
+                device="cuda") -> np.ndarray:
+    """The compat decode: DecodePlan -> RGB [H, W, 3] u8 numpy array, the
+    dense stage on ``device``. ``coefficients`` (``[total_blocks, 64]``
+    int32 zigzag) skips the entropy decode. Only replicate upsampling and
+    RGB output are ported."""
+    check_ported(plan)
+    if color_space != "rgb":
+        raise not_ported(f"color_space={color_space!r}", 1)
+    if coefficients is None:
+        coefficients = decode_coefficients_host(plan, engine)
+    coeffs = torch.as_tensor(np.asarray(coefficients, np.int32), device=device)
+    matrices = torch.as_tensor(plan_matrices(plan), device=device)
+    return _pipeline(coeffs, matrices, PipelineGeometry.of(plan), rounding,
+                     upsample).cpu().numpy()
+
+
 def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
                      device="cuda", idct_mode: str = "exact") -> np.ndarray:
     """C++ plane-layout entropy + K1 on ``device`` -> RGB [H, W, 3] u8."""
@@ -122,26 +205,31 @@ def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
 
     if idct_mode != "exact":
         raise not_ported(f"idct_mode={idct_mode!r}", 1)
-    check_fast_path(plan)
+    check_ported(plan)
     return decode_planes_fused(native_decode_planes(plan), plan, rounding,
                                device)
 
 
 def decode_bytes(data: bytes, rounding: str = "truncate",
-                 path: str = "fast", device="cuda",
+                 engine: str = "auto", path: str = "compat",
                  upsample: str = "replicate", color_space: str = "rgb",
-                 idct_mode: str = "exact") -> np.ndarray:
+                 idct_mode: str = "exact", device="cuda") -> np.ndarray:
     """JPEG bytes -> RGB [H, W, 3] u8 numpy array, decoded on ``device``.
 
-    Only ``path="fast"`` (the JAX package's default is its compat pipeline,
-    not ported yet) with replicate upsampling and RGB output."""
-    if path != "fast":
-        raise not_ported(f"path={path!r}", 1)
+    ``path="compat"`` (default, as in the JAX package) runs
+    :func:`decode_plan` with ``engine``; ``path="fast"`` runs K1
+    (:func:`decode_plan_fast`, which alone reads ``idct_mode``), within
+    +-1 u8 of it. Only replicate upsampling and RGB output are ported."""
+    if path not in ("compat", "fast"):
+        raise ValueError(f"unknown path {path!r}")
     if upsample != "replicate":
         raise not_ported(f"upsample={upsample!r}", 1)
     if color_space != "rgb":
         raise not_ported(f"color_space={color_space!r}", 1)
-    return decode_plan_fast(parse_jpeg(data), rounding, device, idct_mode)
+    plan = parse_jpeg(data)
+    if path == "fast":
+        return decode_plan_fast(plan, rounding, device, idct_mode)
+    return decode_plan(plan, rounding, engine, device=device)
 
 
 def apply_exif_orientation(rgb: np.ndarray, orientation: int | None) -> np.ndarray:
@@ -161,13 +249,13 @@ def apply_exif_orientation(rgb: np.ndarray, orientation: int | None) -> np.ndarr
     return np.ascontiguousarray(fn(rgb)) if fn else rgb
 
 
-def decode_file(path, rounding: str = "truncate", device="cuda",
-                exif_orientation: bool = False) -> np.ndarray:
-    """Decode a JPEG file on ``device``; ``exif_orientation=True`` applies
-    the EXIF orientation tag."""
+def decode_file(path, rounding: str = "truncate", engine: str = "auto",
+                exif_orientation: bool = False, device="cuda") -> np.ndarray:
+    """Decode a JPEG file through the compat path on ``device``;
+    ``exif_orientation=True`` applies the EXIF orientation tag."""
     with open(path, "rb") as f:
         plan = parse_jpeg(f.read())
-    rgb = decode_plan_fast(plan, rounding, device)
+    rgb = decode_plan(plan, rounding, engine, device=device)
     if exif_orientation:
         rgb = apply_exif_orientation(rgb, (plan.exif or {}).get("orientation"))
     return rgb

@@ -71,6 +71,15 @@ def _check_inputs(planes, qtabs, geom) -> int:
     n_comp = len(geom.sampling)
     if n_comp not in (1, 3):
         raise ValueError(f"K1 takes 1 or 3 components, got {n_comp}")
+    for h, v in geom.sampling:
+        # Whole upsampling factors of 1, 2 or 4 on both axes, as the kernel's
+        # launcher (and K2's) takes them.
+        if (h < 1 or v < 1 or geom.h_max % h or geom.v_max % v
+                or geom.h_max // h not in (1, 2, 4)
+                or geom.v_max // v not in (1, 2, 4)):
+            raise ValueError(
+                f"K1 takes upsampling factors of 1, 2 or 4: sampling {h}x{v} "
+                f"against {geom.h_max}x{geom.v_max}")
     if len(planes) != n_comp:
         raise ValueError(f"expected {n_comp} planes, got {len(planes)}")
     batch = planes[0].shape[0]
@@ -132,8 +141,10 @@ def _configure(lib) -> None:
 
 def load_kernel():
     """Build (at first use) and load the K1 library. ``--fmad=false`` keeps
-    nvcc from contracting the colour stage's multiply-adds."""
-    return load_cuda_kernel("fused_plane", ("--fmad=false",), _configure)
+    nvcc from contracting the colour stage's multiply-adds; the IDCT comes
+    from ``csrc/idct8x8.cuh``, shared with K5 and K6."""
+    return load_cuda_kernel("fused_plane", ("--fmad=false",), _configure,
+                            headers=("idct8x8.cuh",))
 
 
 def fused_plane_decode_cuda(planes, qtabs, geom,

@@ -1,11 +1,11 @@
 """The 1-D DCT basis the pixel kernel (K1), the forward kernel (K2), the bare
-IDCT kernel (K5) and their plain versions use, and the host encoder's
-forward DCT matrix.
+IDCT kernels (K5, K6) and their plain versions use; the compat decode's
+fused [64, 64] dequant + unzigzag + IDCT matrix; the host encoder's forward
+DCT matrix.
 
-Copies of ``jpeg_tpu.ops.idct.dct_basis_1d`` and ``forward_dct_matrix``. The
-fused [64, 64] dequant matrix of the JAX compat pipeline is not part of the
-port's path: K1, K2 and K5 run the separable 8x8 transform with this basis
-in fp32.
+Copies of ``jpeg_tpu.ops.idct.dct_basis_1d``, ``fused_idct_matrix`` and
+``forward_dct_matrix``. K1, K2, K5 and K6 run the separable 8x8 transform
+with this basis in fp32; the compat decode multiplies by the fused matrix.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from jpeg_tpu_torch.ops.zigzag import permutation_matrix
 
 
 def dct_basis_1d() -> np.ndarray:
@@ -35,6 +37,15 @@ def _idct_kron() -> np.ndarray:
     """kron(A, A): [64, 64] so that out_flat = F_flat(natural) @ K."""
     a = dct_basis_1d()
     return np.kron(a, a)
+
+
+def fused_idct_matrix(quant_zz: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """[64, 64] matrix fusing dequant + unzigzag + IDCT for one quant table
+    in zigzag order (as stored in DQT): pixels [N, 64] = coeffs_zigzag
+    [N, 64] @ it. Built in float64, cast down."""
+    q = np.asarray(quant_zz, dtype=np.float64).reshape(64)
+    m = (q[:, None] * permutation_matrix().astype(np.float64)) @ _idct_kron()
+    return m.astype(dtype)
 
 
 def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -8,17 +8,19 @@ roofline instrument of the JAX bench (``bench_idct_roofline``: 8x8 blocks/s
 against the speed of light at 2 B in + 4 B out per pixel), not a stage of a
 decode path.
 
-The CUDA kernels are in ``csrc/idct_only.cu``. Each plain PyTorch twin
-computes its kernel's fp32 operations in the same order, with every product
-rounded (no fused multiply-add):
+The CUDA kernels are one templated body in ``csrc/idct_only.cu``. Each
+plain PyTorch twin is its kernel's definition, every product rounded (no
+fused multiply-add):
 
 - :func:`idct_only_plain`: dequant, a vertical pass, a horizontal pass, each
-  summing its eight terms in ascending order;
+  summing its eight terms in ascending order from the first product;
 - :func:`idct_only_roll_plain`: the literal shift-and-mask passes of
-  ``idct_roll_tile`` with ``torch.roll`` inside each [128, 256] tile.
+  ``idct_roll_tile`` with ``torch.roll`` inside each [128, 256] tile, each
+  summing 15 terms from +0.
 
-The two agree by value: the masked terms add exact zeros (only the sign of
-a zero may differ, so compare with ``==`` or ``torch.equal``).
+The masked terms add exact zeros, so the two agree by value and differ only
+in the sign of a zero (K6 never gives -0); the kernels reproduce each twin
+bit for bit.
 
 :func:`idct_only` and :func:`idct_only_roll` take the plain version only for
 tensors on the CPU. For CUDA tensors they launch the kernel or raise.
@@ -27,7 +29,6 @@ tensors on the CPU. For CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import numpy as np
 import torch
@@ -130,40 +131,21 @@ def idct_only_roll_plain(x: torch.Tensor, qpat: torch.Tensor) -> torch.Tensor:
 
 def _configure(lib) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int32
-    lib.jt_idct_only_tables.restype = ctypes.c_int
-    lib.jt_idct_only_tables.argtypes = [vp, vp, vp]  # host basis, mrow, mcol
     for fn in (lib.jt_idct_only, lib.jt_idct_only_roll):
         fn.restype = ctypes.c_int
-        fn.argtypes = [vp, vp, vp, i32, i32, vp]  # x, qpat, out, rows, cols, stream
+        # x, qpat, basis (host), out, rows, cols, stream
+        fn.argtypes = [vp, vp, ctypes.POINTER(ctypes.c_float), vp, i32, i32, vp]
 
 
 def load_kernel():
     """Build (at first use) and load the K5/K6 library. ``--fmad=false``
-    keeps nvcc from contracting the multiply-adds."""
-    return load_cuda_kernel("idct_only", ("--fmad=false",), _configure)
+    keeps nvcc from contracting the multiply-adds; the IDCT comes from
+    ``csrc/idct8x8.cuh``, shared with K1."""
+    return load_cuda_kernel("idct_only", ("--fmad=false",), _configure,
+                            headers=("idct8x8.cuh",))
 
 
-_tables_on: set = set()  # CUDA device indices whose constant memory is set
-_tables_lock = threading.Lock()
-
-
-def _lib_for(dev: torch.device):
-    """The library, with the basis and the period-8 masks in the constant
-    memory of ``dev`` (set once per device: they never change)."""
-    lib = load_kernel()
-    with _tables_lock:
-        if dev.index not in _tables_on:
-            basis = np.ascontiguousarray(dct_basis_1d(), np.float32)
-            mrow, mcol = roll_masks(BAND_ROWS, TILE_W)
-            mrow8 = np.ascontiguousarray(mrow[:8, :15])
-            mcol8 = np.ascontiguousarray(mcol[:15, :8])
-            with torch.cuda.device(dev):
-                rc = lib.jt_idct_only_tables(basis.ctypes.data,
-                                             mrow8.ctypes.data, mcol8.ctypes.data)
-            if rc != 0:
-                raise RuntimeError(f"K5/K6 constant upload failed: CUDA error {rc}")
-            _tables_on.add(dev.index)
-    return lib
+_BASIS = np.ascontiguousarray(dct_basis_1d(), np.float32)
 
 
 def _launch(name: str, entry: str, x: torch.Tensor, qpat: torch.Tensor,
@@ -171,13 +153,16 @@ def _launch(name: str, entry: str, x: torch.Tensor, qpat: torch.Tensor,
     _check(x, qpat)
     if not (x.is_contiguous() and qpat.is_contiguous()):
         raise ValueError(f"{name} inputs must be contiguous")
+    if x.data_ptr() % 16 or qpat.data_ptr() % 16:
+        raise ValueError(f"{name} inputs must start on a 16-byte boundary")
     dev = x.device
-    lib = _lib_for(dev)
+    lib = load_kernel()
     rows, cols = x.shape
     out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
-    rc = getattr(lib, entry)(x.data_ptr(), qpat.data_ptr(), out.data_ptr(),
-                             rows, cols,
-                             torch.cuda.current_stream(dev).cuda_stream)
+    rc = getattr(lib, entry)(
+        x.data_ptr(), qpat.data_ptr(),
+        _BASIS.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.data_ptr(),
+        rows, cols, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     counter.add()

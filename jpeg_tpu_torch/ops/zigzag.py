@@ -25,6 +25,13 @@ ZIGZAG_INDICES = np.array(
 NATURAL_TO_ZIGZAG = np.argsort(ZIGZAG_INDICES).astype(np.int32)
 
 
+def permutation_matrix() -> np.ndarray:
+    """P such that ``natural = zigzag_vec @ P`` (P[j, ZIGZAG_INDICES[j]] = 1)."""
+    p = np.zeros((64, 64), dtype=np.float32)
+    p[np.arange(64), ZIGZAG_INDICES] = 1.0
+    return p
+
+
 def unzigzag(block_zz: np.ndarray) -> np.ndarray:
     """[..., 64] zigzag-order -> natural (row-major) order.
 

@@ -35,7 +35,7 @@ from jpeg_tpu_torch.entropy import device_huffman
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models.decoder import (
     PipelineGeometry,
-    check_fast_path,
+    check_ported,
     coefficient_planes_from_blocks,
     not_ported,
 )
@@ -115,7 +115,7 @@ class BatchedCorpusDecoder:
         """Host route -> (name, plan, geom, planes, error)."""
         try:
             plan = parse_jpeg(self._read(item))
-            check_fast_path(plan)
+            check_ported(plan)
             # native_decode_planes hands back this thread's scratch buffers:
             # copy before the thread decodes another same-geometry image.
             planes = [p.copy() for p in native_decode_planes(plan, n_threads=1)]

@@ -1,8 +1,10 @@
 """Host C++ entropy runtime and entropy encoder, bound with ctypes.
 
-Binds three entry points of the JAX package's C++ decode library
+Binds four entry points of the JAX package's C++ decode library
 (``jpeg_tpu/runtime/native/jpegtpu.cpp``) without importing ``jpeg_tpu``:
 
+- ``jt_decode_scan``: restart-segment-parallel Huffman decode into
+  ``[total_blocks, 64]`` int32 zigzag blocks (the compat decode's input);
 - ``jt_decode_scan_planes``: restart-segment-parallel Huffman decode into
   per-component natural-order int16 planes (the layout K1 reads);
 - ``jt_decode_scan_planes_spec``: the speculative self-synchronising decode
@@ -32,7 +34,8 @@ NATIVE_DIR = os.path.join(REPO_DIR, "jpeg_tpu", "runtime", "native")
 SOURCE = os.path.join(NATIVE_DIR, "jpegtpu.cpp")
 ENC_SOURCE = os.path.join(NATIVE_DIR, "jpegtpu_enc.cpp")
 
-# Output buffers reused per thread (see native_decode_planes).
+# Output buffers reused per thread (see native_decode_planes and
+# native_decode_coefficients).
 _tls = threading.local()
 
 
@@ -53,6 +56,15 @@ def _configure(lib: ctypes.CDLL) -> None:
     i64p = ctypes.POINTER(ctypes.c_int64)
     u16p = ctypes.POINTER(ctypes.c_uint16)
     i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.jt_decode_scan.restype = ctypes.c_int64
+    lib.jt_decode_scan.argtypes = [
+        u8p, ctypes.c_int64,  # data, n_bytes
+        i64p, i64p, i64p, i64p, ctypes.c_int64,  # seg arrays, n_segs
+        u8p, ctypes.c_int32,  # slot_comp, blocks_per_mcu
+        u8p, u8p, ctypes.c_int32,  # comp dc/ac ids, n_comp
+        u16p, u16p,  # packed dc/ac LUTs
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,  # out, n_threads
+    ]
     lib.jt_decode_scan_planes.restype = ctypes.c_int64
     lib.jt_decode_scan_planes.argtypes = [
         u8p, ctypes.c_int64,  # data, n_bytes
@@ -194,6 +206,52 @@ def native_decode_planes(plan, n_threads: int | None = None,
     if err >= 0:
         raise NativeDecodeError(int(err))
     return planes
+
+
+def native_decode_coefficients(plan, n_threads: int | None = None,
+                               reuse_buffer: bool = True) -> np.ndarray:
+    """Threaded entropy decode -> ``[total_blocks, 64]`` int32 zigzag
+    blocks, DC prediction applied, MCU stream order (the contract of
+    ``jpeg_tpu.runtime.native_decode_coefficients``). Restart segments
+    decode in parallel across ``n_threads`` (default: cpu count).
+
+    With ``reuse_buffer`` (default) the array is this thread's scratch
+    buffer, overwritten by its next call for the same block count: consume
+    or copy it first. Raises :class:`NativeDecodeError` on an invalid
+    prefix."""
+    lib = load()
+    if n_threads is None:
+        n_threads = os.cpu_count() or 1
+    a = _plane_args(plan)
+    bufs = getattr(_tls, "coeffs", None)
+    if bufs is None:
+        bufs = _tls.coeffs = {}
+    out = bufs.get(plan.total_blocks) if reuse_buffer else None
+    if out is None:
+        # The C++ side zeroes each block as it decodes it.
+        out = np.empty((plan.total_blocks, 64), dtype=np.int32)
+        if reuse_buffer:
+            bufs[plan.total_blocks] = out
+    data = a["data"]
+    err = lib.jt_decode_scan(
+        _p(data, ctypes.c_uint8), data.size,
+        _p(a["seg_start"], ctypes.c_int64), _p(a["seg_end"], ctypes.c_int64),
+        _p(a["seg_mcu_start"], ctypes.c_int64),
+        _p(a["seg_mcu_count"], ctypes.c_int64), len(plan.segments),
+        _p(a["slot_comp"], ctypes.c_uint8), plan.blocks_per_mcu,
+        _p(a["comp_dc"], ctypes.c_uint8), _p(a["comp_ac"], ctypes.c_uint8),
+        len(plan.components),
+        _p(a["dc_luts"], ctypes.c_uint16), _p(a["ac_luts"], ctypes.c_uint16),
+        _p(out, ctypes.c_int32), n_threads)
+    if err >= 0:
+        raise NativeDecodeError(int(err))
+    # A truncated stream can declare fewer restart segments than the frame
+    # holds; the C++ side writes only blocks inside declared segments, so
+    # zero the tail (the reference's oracle fills it with zeros too).
+    covered = int(a["seg_mcu_count"].sum()) * plan.blocks_per_mcu
+    if covered < plan.total_blocks:
+        out[covered:] = 0
+    return out
 
 
 def native_unstuff_scan(data: np.ndarray, start: int):

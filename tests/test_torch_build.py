@@ -7,6 +7,7 @@ import os
 import pytest
 
 from jpeg_tpu_torch.entropy import device_huffman, device_kernel
+from jpeg_tpu_torch.ops import fused_plane, idct_only
 from jpeg_tpu_torch.utils import build
 
 
@@ -29,6 +30,20 @@ def test_huffman_kernels_hash_their_shared_header(monkeypatch, tmp_path,
     """K3 and K4 include csrc/huffman_common.cuh: their loaders compile the
     .cu alone, with csrc on the include path, and name the library after a
     hash that covers the header."""
+    _check_loader_hashes_header(monkeypatch, tmp_path, module, name,
+                                "huffman_common.cuh")
+
+
+@pytest.mark.parametrize("module,name", [(fused_plane, "fused_plane"),
+                                         (idct_only, "idct_only")])
+def test_idct_kernels_hash_their_shared_header(monkeypatch, tmp_path, module,
+                                               name):
+    """K1 and K5/K6 include csrc/idct8x8.cuh, the register IDCT they share."""
+    _check_loader_hashes_header(monkeypatch, tmp_path, module, name,
+                                "idct8x8.cuh")
+
+
+def _check_loader_hashes_header(monkeypatch, tmp_path, module, name, header):
     calls = []
 
     def fake_build(lib, compiler, sources, headers=()):
@@ -43,14 +58,14 @@ def test_huffman_kernels_hash_their_shared_header(monkeypatch, tmp_path,
     (lib, compiler, sources, headers), = calls
     assert lib == name
     assert sources == [os.path.join(build.CSRC_DIR, f"{name}.cu")]
-    assert headers == (os.path.join(build.CSRC_DIR, "huffman_common.cuh"),)
+    assert headers == (os.path.join(build.CSRC_DIR, header),)
     assert compiler[compiler.index("-I") + 1] == build.CSRC_DIR
     with open(sources[0]) as f:
-        assert '#include "huffman_common.cuh"' in f.read()
+        assert f'#include "{header}"' in f.read()
     # The library's name moves with the header's text.
     monkeypatch.undo()
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
-    copy = tmp_path / "huffman_common.cuh"
+    copy = tmp_path / header
     with open(headers[0]) as f:
         copy.write_text(f.read())
     names = []

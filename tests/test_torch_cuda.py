@@ -253,7 +253,8 @@ def test_hybrid_corpus_on_card(cuda):
     assert dec.device_frames > 0
     for data, r in zip(items, got):
         assert r.ok
-        np.testing.assert_array_equal(r.rgb, decode_bytes(data, device="cpu"))
+        np.testing.assert_array_equal(
+            r.rgb, decode_bytes(data, path="fast", device="cpu"))
 
 
 def _image(width, height, seed):
@@ -347,3 +348,89 @@ def test_encode_rgb_device_cuda_bytes_equal_cpu(cuda, kwargs):
         img = img[..., 0]
     assert (encode_rgb_device(img, device=cuda, **kwargs)
             == encode_rgb_device(img, device="cpu", **kwargs))
+
+
+def _idct_plane(shape, zeros, pattern, seed):
+    """A seeded int16 plane with a share of zero coefficients, and a tiled
+    or an arbitrary (not periodic, signed) dequant pattern."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-512, 512, shape).astype(np.int16)
+    x[rng.random(shape) < zeros] = 0
+    if pattern == "tiled":
+        qpat = k56.quant_pattern(np.arange(1, 65), 128, 256)
+    else:
+        qpat = rng.uniform(-4.0, 64.0, (128, 256)).astype(np.float32)
+        qpat[rng.random((128, 256)) < 0.05] = 0.0
+    return torch.from_numpy(x), torch.from_numpy(qpat)
+
+
+@pytest.mark.parametrize("pattern", ["tiled", "random"])
+@pytest.mark.parametrize("zeros", [0.8, 1.0])
+@pytest.mark.parametrize("shape", [(128, 256), (512, 768)])
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_k5_k6_kernels_equal_plain_bit_for_bit(cuda, kernel, shape, zeros,
+                                               pattern):
+    """One templated body, two sums: each kernel gives its own twin's bits,
+    the sign of every zero included."""
+    x, qpat = (t.to(cuda) for t in _idct_plane(shape, zeros, pattern,
+                                                 seed=shape[0] + int(zeros * 10)))
+    build, plain = {"K5": (k56.idct_only_kernel, k56.idct_only_plain),
+                    "K6": (k56.idct_only_kernel_roll, k56.idct_only_roll_plain)}[kernel]
+    got = build(*shape)(x, qpat)
+    assert torch.equal(got.view(torch.int32), plain(x, qpat).view(torch.int32))
+
+
+def test_k5_k6_kernels_keep_the_sign_of_zero(cuda):
+    """Zero coefficients under a negative pattern: K5 gives -0 at each
+    block's first pixel, as its twin does, and K6 +0 everywhere."""
+    x = torch.zeros((128, 256), dtype=torch.int16, device=cuda)
+    qpat = torch.full((128, 256), -1.0, dtype=torch.float32, device=cuda)
+    k5 = k56.idct_only_kernel(128, 256)(x, qpat)
+    k6 = k56.idct_only_kernel_roll(128, 256)(x, qpat)
+    assert bool(torch.signbit(k5[::8, ::8]).all())
+    assert not bool(torch.signbit(k6).any())
+    assert torch.equal(k5.view(torch.int32),
+                       k56.idct_only_plain(x, qpat).view(torch.int32))
+
+
+@pytest.mark.parametrize("h_max,v_max,sampling", [
+    (1, 3, ((1, 3), (1, 1), (1, 1))),
+    (3, 1, ((3, 1), (2, 1), (2, 1))),
+    (2, 2, ((2, 2), (1, 0), (1, 1))),
+])
+def test_k1_launcher_refuses_factors_it_does_not_take(cuda, h_max, v_max,
+                                                      sampling):
+    """Called directly, past the wrapper's checks, K1's launcher returns
+    cudaErrorInvalidValue (1) for a factor of 3 or one that does not
+    divide, as K2's does, and launches nothing."""
+    import ctypes
+
+    n = len(sampling)
+    planes = [torch.zeros((1, 128, 256), dtype=torch.int16, device=cuda)
+              for _ in range(n)]
+    qt = torch.ones((1, n, 64), dtype=torch.float32, device=cuda)
+    out = torch.zeros((1, 3, 128, 256), dtype=torch.uint8, device=cuda)
+    basis = np.ascontiguousarray(k1.dct_basis_1d(), np.float32)
+    rc = k1.load_kernel().jt_fused_plane_decode(
+        (ctypes.c_void_p * n)(*[p.data_ptr() for p in planes]),
+        (ctypes.c_int64 * n)(*[128] * n), (ctypes.c_int64 * n)(*[256] * n),
+        (ctypes.c_int32 * n)(*[h for h, _ in sampling]),
+        (ctypes.c_int32 * n)(*[v for _, v in sampling]),
+        n, h_max, v_max, 1, qt.data_ptr(),
+        basis.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.data_ptr(),
+        1, 128, 256, 0, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 1
+    assert not bool(out.any())
+
+
+@pytest.mark.parametrize("name", SMALL)
+def test_compat_default_on_card_within_one(cuda, name):
+    """decode_bytes' default (compat) route with its product on the card:
+    within +-1 u8 of the same route on the CPU and of the fast path."""
+    data = _read(name)
+    got = decode_bytes(data, device=cuda)
+    for want in (decode_bytes(data, device="cpu"),
+                 decode_bytes(data, path="fast", device=cuda)):
+        assert got.shape == want.shape
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

@@ -201,7 +201,7 @@ def test_round_trip_through_port_decoders():
     assert dec.device_frames > 0
     for im, data, r in zip(imgs, items, got):
         assert r.ok
-        single = decode_bytes(data, device="cpu")
+        single = decode_bytes(data, path="fast", device="cpu")
         np.testing.assert_array_equal(r.rgb, single)
         assert _psnr(single, im) > 30.0
 

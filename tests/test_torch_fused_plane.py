@@ -146,3 +146,20 @@ def test_basis_mirror_symmetry_is_exact_in_float32(v):
     a = dct_basis_1d().astype(np.float32)[v]
     np.testing.assert_array_equal(a[::-1], a if v % 2 == 0 else -a)
     np.testing.assert_array_equal(a, ref_basis().astype(np.float32)[v])
+
+
+@pytest.mark.parametrize("h_max,v_max,sampling", [
+    (1, 3, ((1, 3), (1, 1), (1, 1))),  # chroma factor 3 vertically
+    (3, 1, ((3, 1), (2, 1), (2, 1))),  # h_max 3 against h 2: no whole factor
+    (2, 2, ((2, 2), (1, 0), (1, 1))),  # a factor below 1
+])
+def test_wrapper_refuses_factors_k1_does_not_take(h_max, v_max, sampling):
+    """K1 (kernel and twin alike) takes upsampling factors of 1, 2 or 4 that
+    divide the maxima, as K2's launcher does; the twin would otherwise
+    repeat by 3 where the kernel cannot."""
+    geom = PipelineGeometry(width=64, height=48, mcus_x=2, mcus_y=2,
+                            h_max=h_max, v_max=v_max, sampling=sampling)
+    planes = [torch.zeros((1, 128, 256), dtype=torch.int16) for _ in sampling]
+    qt = torch.ones((1, 3, 64), dtype=torch.float32)
+    with pytest.raises(ValueError, match="factors of 1, 2 or 4"):
+        fused_plane_decode(planes, qt, geom)

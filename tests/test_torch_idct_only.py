@@ -112,3 +112,125 @@ def test_run_refuses_other_shapes_and_types():
         run(torch.zeros((128, 256), dtype=torch.int32), qpat)
     with pytest.raises(ValueError, match="qpat"):
         run(torch.zeros((128, 256), dtype=torch.int16), qpat[:64])
+
+
+# The redesign's claims, checked in float32 NumPy (each operation rounded,
+# as on the card with --fmad=false): K6's 15 terms a pass are its 8 unmasked
+# terms summed from +0, and the kernels' body (idct8x8.cuh) gives each twin
+# bit for bit.
+
+
+def _sum8(terms, zero_start):
+    acc = np.zeros_like(terms[0]) if zero_start else terms[0]
+    for t in (terms if zero_start else terms[1:]):
+        acc = acc + t
+    return acc
+
+
+def _ordered_model(x, qpat, zero_start):
+    """Eight terms a pass in ascending order, from +0 or from the first."""
+    rows, cols = x.shape
+    f = (x.astype(np.float32).reshape(rows // 128, 128, cols // 256, 256)
+         * qpat.reshape(1, 128, 1, 256)).reshape(rows // 8, 8, cols // 8, 8)
+    a = dct_basis_1d().astype(np.float32)
+    t = _sum8([a[v].reshape(1, 8, 1, 1) * f[:, v:v + 1] for v in range(8)],
+              zero_start)
+    s = _sum8([t[..., u:u + 1] * a[u] for u in range(8)], zero_start)
+    return s.reshape(rows, cols)
+
+
+def _kernel_model(x, qpat, zero_start):
+    """idct8x8.cuh as written: each product of the first half of the
+    outputs also serves the mirrored output, negated for odd terms; the
+    vertical pass starts from its first product, the horizontal one from +0
+    where ``zero_start`` (K6)."""
+    rows, cols = x.shape
+    f = (x.astype(np.float32).reshape(rows // 128, 128, cols // 256, 256)
+         * qpat.reshape(1, 128, 1, 256)).reshape(rows // 8, 8, cols // 8, 8)
+    a = dct_basis_1d().astype(np.float32)
+
+    def half_pass(prod, start_zero):  # prod(k, y) -> the rounded product
+        out = [None] * 8
+        for y in range(4):
+            p0 = prod(0, y)
+            lo = np.float32(0.0) + p0 if start_zero else p0
+            hi = lo
+            for k in range(1, 8):
+                p = prod(k, y)
+                lo = lo + p
+                hi = hi + (-p if k & 1 else p)
+            out[y], out[7 - y] = lo, hi
+        return out
+
+    t = np.stack(half_pass(lambda v, y: a[v, y] * f[:, v], False), axis=1)
+    s = np.stack(half_pass(lambda u, x_: t[..., u] * a[u, x_], zero_start),
+                 axis=-1)
+    return s.reshape(rows, cols)
+
+
+def _design_inputs(zeros, pattern, seed=0, shape=(256, 512)):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-512, 512, shape).astype(np.int16)
+    x[rng.random(shape) < zeros] = 0
+    if pattern == "tiled":
+        qpat = k56.quant_pattern(np.arange(1, 65), 128, 256)
+    else:  # any [128, 256] values, not periodic, zeros and negatives too
+        qpat = rng.uniform(-4.0, 64.0, (128, 256)).astype(np.float32)
+        qpat[rng.random((128, 256)) < 0.05] = 0.0
+    return x, qpat
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("pattern", ["tiled", "random"])
+@pytest.mark.parametrize("zeros", [0.0, 0.8, 1.0])
+def test_eight_term_models_equal_twins_bit_for_bit(zeros, pattern):
+    """K6's twin (15 terms a pass from +0, seven of them masked to +-0) is
+    the 8-term sum from +0; K5's twin the 8-term sum from the first
+    product. The two agree by value and K6 never gives -0."""
+    x, qpat = _design_inputs(zeros, pattern, seed=int(zeros * 10))
+    xt, qt = torch.from_numpy(x), torch.from_numpy(qpat)
+    k5 = k56.idct_only_plain(xt, qt).numpy()
+    k6 = k56.idct_only_roll_plain(xt, qt).numpy()
+    np.testing.assert_array_equal(_bits(_ordered_model(x, qpat, True)), _bits(k6))
+    np.testing.assert_array_equal(_bits(_ordered_model(x, qpat, False)), _bits(k5))
+    np.testing.assert_array_equal(k5, k6)  # equal values
+    assert not np.signbit(k6[k6 == 0]).any()
+
+
+def test_k5_and_k6_differ_in_the_sign_of_zero():
+    """Zero coefficients under a negative pattern: every dequantised value
+    is -0, every product of the first row and column of a block is -0, and
+    K5's sum of them is -0 where K6's +0 start gives +0."""
+    x = np.zeros((128, 256), np.int16)
+    qpat = np.full((128, 256), -1.0, np.float32)
+    xt, qt = torch.from_numpy(x), torch.from_numpy(qpat)
+    k5 = k56.idct_only_plain(xt, qt).numpy()
+    k6 = k56.idct_only_roll_plain(xt, qt).numpy()
+    assert (k5 == 0).all() and (k6 == 0).all()
+    assert np.signbit(k5[::8, ::8]).all() and not np.signbit(k6).any()
+    np.testing.assert_array_equal(_bits(_kernel_model(x, qpat, False)), _bits(k5))
+    np.testing.assert_array_equal(_bits(_kernel_model(x, qpat, True)), _bits(k6))
+
+
+@pytest.mark.parametrize("pattern", ["tiled", "random"])
+@pytest.mark.parametrize("zeros", [0.0, 0.8, 1.0])
+def test_kernel_body_equals_twins_bit_for_bit(zeros, pattern):
+    """The shared body's arithmetic (mirrored products, the template's +0
+    start on the horizontal pass only) reproduces both twins."""
+    x, qpat = _design_inputs(zeros, pattern, seed=5 + int(zeros * 10))
+    xt, qt = torch.from_numpy(x), torch.from_numpy(qpat)
+    np.testing.assert_array_equal(_bits(_kernel_model(x, qpat, False)),
+                                  _bits(k56.idct_only_plain(xt, qt).numpy()))
+    np.testing.assert_array_equal(_bits(_kernel_model(x, qpat, True)),
+                                  _bits(k56.idct_only_roll_plain(xt, qt).numpy()))
+
+
+@pytest.mark.parametrize("v", range(8))
+def test_float32_basis_is_mirror_symmetric(v):
+    """A[v][7 - y] == (-1)^v A[v][y] bit for bit in float32: what lets the
+    kernels share each product between outputs y and 7 - y."""
+    a = dct_basis_1d().astype(np.float32)[v]
+    np.testing.assert_array_equal(_bits(a[::-1]), _bits(a if v % 2 == 0 else -a))

@@ -82,7 +82,8 @@ def test_hybrid_equals_host_route_with_isolation():
         if h.ok:
             np.testing.assert_array_equal(h.rgb, g.rgb)
     for g, data in zip(hyb[2:-1], items[2:-1]):
-        np.testing.assert_array_equal(g.rgb, decode_bytes(data, device="cpu"))
+        np.testing.assert_array_equal(
+            g.rgb, decode_bytes(data, path="fast", device="cpu"))
 
 
 def test_mixed_tables_claim_goes_to_host():
@@ -149,7 +150,7 @@ def test_tail_guard_leaves_small_corpus_to_host():
 def test_decode_bytes_matches_jax_fast_path(name, rounding):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
-    got = decode_bytes(data, rounding=rounding, device="cpu")
+    got = decode_bytes(data, rounding=rounding, path="fast", device="cpu")
     _within_one(got, np.asarray(ref_decode_bytes(data, rounding=rounding,
                                                  path="fast")))
 
@@ -172,10 +173,10 @@ def test_decode_file_and_exif_orientation():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(path="compat"), "path='compat'"),
+    (dict(path="fast", upsample="fancy"), "upsample='fancy'"),
     (dict(upsample="fancy"), "upsample='fancy'"),
     (dict(color_space="ycbcr"), "color_space='ycbcr'"),
-    (dict(idct_mode="approx"), "idct_mode='approx'"),
+    (dict(path="fast", idct_mode="approx"), "idct_mode='approx'"),
 ])
 def test_off_slice_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
