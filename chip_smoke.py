@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the C++ entropy runtime, the C++ entropy encoder and the five CUDA
-libraries (K1-K6) from this checkout (all at once), checks each kernel
+Builds the C++ entropy runtime and entropy encoder (the port's own copies
+of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``) and
+the five CUDA libraries (K1-K6) from this checkout (all at once), checks each kernel
 against its plain PyTorch version at the shapes its path gives it (K1 and
 K2 on every sampling they take, K3 and K4 on corrupt streams and eight 4K
 frames), times K1 at 8 and 62 4K frames, K3 at 1, 8 and 32, K4 and K2 at
@@ -23,6 +24,7 @@ frames), times K1 at 8 and 62 4K frames, K3 at 1, 8 and 32, K4 and K2 at
   frame), ``coefficient_planes_from_blocks`` and K1, the coefficients
   staying on the card, held to ``decode_bytes(path="fast")``; K4's batch
   tier is held to K3 and the C++ decoder on eight frames;
+- every stream kind beside baseline Huffman YCbCr / gray (below);
 - the bare dequant + IDCT of ``bench.py``'s roofline shape, a [4096, 3840]
   int16 plane, through ``idct_only_kernel`` (K5) and
   ``idct_only_kernel_roll`` (K6), each held to its plain version bit for
@@ -30,7 +32,16 @@ frames), times K1 at 8 and 62 4K frames, K3 at 1, 8 and 32, K4 and K2 at
 
 Between the last two, ``decode_bytes``' default route (the compat decode,
 no kernel of its own) decodes a 4K frame and two 512x384 images on the card
-and is held within +-1 u8 of the fast path and of the CPU.
+and is held within +-1 u8 of the fast path and of the CPU. Then every other
+8-bit DCT stream kind: a 3840x2160 libjpeg progressive frame and a SOF9
+frame with a restart per MCU row go through K1 bit for bit with the CPU
+route (host entropy and H2D + K1 + D2H timed apart), SOF10, progressive
+gray, CMYK (baseline and progressive), YCCK and RGB-direct 512x384 images
+through their routes; a mixed corpus of these with eight baseline 4K
+frames runs through ``BatchedCorpusDecoder(hybrid_device=True)`` (K3 and
+K1; the progressive and SOF9 frames share the baseline frames' K1 bucket)
+and through ``CorpusDecoder`` on both paths, each item held to its route's
+``decode_bytes`` on the card.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
@@ -71,6 +82,16 @@ FIXTURES = os.path.join(REPO, "tests", "goldens", "torch")
 FRAMES_4K = ["synth_3840x2160_s0_q85_rst1.jpg", "synth_3840x2160_s1_q85_rst1.jpg"]
 SMALL_RST = ["synth_512x384_s2_q85_rst1.jpg", "synth_512x384_s4_q85_rst1_gray.jpg"]
 SMALL_NO_RST = "synth_512x384_s3_q85_rst0.jpg"
+PROG_4K = "synth_3840x2160_s5_q85_rst0_prog.jpg"   # libjpeg, no restarts
+SOF9_4K = "synth_3840x2160_s6_q85_rst1_sof9.jpg"   # a restart per MCU row
+K1_ROUTE_SMALL = ["synth_512x384_s7_q85_rst0_sof10.jpg",
+                  "synth_512x384_s12_q85_rst0_gray_prog.jpg"]
+COMPAT_ROUTE = ["synth_512x384_s8_q85_rst0_cmyk.jpg",
+                "synth_512x384_s9_q85_rst0_cmyk_prog.jpg",
+                "synth_512x384_s10_q85_rst0_ycck.jpg",
+                "synth_512x384_s11_q85_rst0_rgb.jpg"]
+MIXED_COPIES = 4  # copies of each 4K progressive and SOF9 frame in the corpus
+MIXED_BATCH = 4   # frames per device claim in the mixed corpus
 BATCH = 8        # frames per K1 / K2 / K3 check, and per device claim
 CORPUS_4K = 62   # 4K frames in the decode corpus (plus two small images)
 ROUND_TRIP = 32  # items in the encode -> decode corpus (the 8 streams, repeated)
@@ -490,7 +511,12 @@ def run() -> list[dict]:
     # 10. decode_bytes' default route, the compat decode.
     compat_path()
 
-    # 11. K5 and K6 at the roofline instrument's shape.
+    # 11. Every other stream kind: single images, then the mixed corpus.
+    t0 = time.perf_counter()
+    k1_mixed_launches, k3_mixed_launches = every_stream_path()
+    print(f"every-stream phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 12. K5 and K6 at the roofline instrument's shape.
     k5, k6 = idct_roofline(dev)
 
     print(card, flush=True)  # nvidia-smi name, power limit
@@ -501,6 +527,7 @@ def run() -> list[dict]:
          "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:215",
          "launches": k1_launches, "launches_round_trip": k1_rt_launches,
+         "launches_mixed_corpus": k1_mixed_launches,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
          "ms_8_frames": k1_8, "bound_ms_8_frames": k1_8_bnd["bound_ms"]},
@@ -512,6 +539,7 @@ def run() -> list[dict]:
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
          "launches": k3_launches, "launches_round_trip": k3_rt_launches,
+         "launches_mixed_corpus": k3_mixed_launches,
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          **k3_bnd, "library_ms": None, "frames": BATCH,
          "ms_by_frames": {str(f): t[0] for f, t in k3_time.items()},
@@ -713,6 +741,163 @@ def compat_path() -> None:
         print(f"compat decode_bytes(device='cuda') of {name}: "
               f"{wall * 1e3:.3f} ms (host clock, bytes to RGB on the host)",
               flush=True)
+
+
+def within_one(got: np.ndarray, want: np.ndarray) -> tuple[bool, int]:
+    """(max |got - want| <= 1 with equal shapes, count of differing values)."""
+    if got.shape != want.shape:
+        return False, -1
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(diff.max()) <= 1, int((diff > 0).sum())
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock milliseconds of ``fn()`` (after one warm-up), the
+    card synchronised around each call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def every_stream_path() -> tuple[int, int]:
+    """The stream kinds beside baseline Huffman: progressive (SOF2), SOF9
+    and SOF10 through K1 (``decode_bytes(path="fast")``, bit for bit with
+    the CPU route), CMYK, YCCK and RGB-direct through the compat route
+    (within +-1 u8 of the CPU and of ``path="fast"``, which sends them
+    there); then the mixed corpus through the hybrid batched decoder and
+    both ``CorpusDecoder`` routes. Returns the mixed corpus' K1 and K3
+    launches."""
+    import torch
+
+    from jpeg_tpu_torch import (
+        BatchedCorpusDecoder,
+        CorpusDecoder,
+        decode_bytes,
+        parse_jpeg,
+    )
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.models.decoder import PipelineGeometry, host_planes
+    from jpeg_tpu_torch.ops import fused_plane as k1
+
+    fast, compat = {}, {}  # name -> decode_bytes on the card, per route
+    for name in (PROG_4K, SOF9_4K, *K1_ROUTE_SMALL):
+        data = read(name)
+        before = k1.LAUNCHES.value
+        fast[name] = decode_bytes(data, path="fast", device="cuda")
+        launched = k1.LAUNCHES.value - before
+        cpu = decode_bytes(data, path="fast", device="cpu")
+        check(launched == 1 and np.array_equal(fast[name], cpu),
+              f"{name}: decode_bytes(path='fast') through K1 ({launched} "
+              f"launch) == device='cpu', bit for bit")
+        compat[name] = decode_bytes(data, device="cuda")
+        for label, want in (("device='cpu'", decode_bytes(data, device="cpu")),
+                            ("path='fast'", fast[name])):
+            ok, n = within_one(compat[name], want)
+            check(ok, f"{name}: compat decode_bytes(device='cuda') vs {label}: "
+                  f"within +-1 u8, {n} of {want.size} values differ")
+    for name in COMPAT_ROUTE:
+        data = read(name)
+        compat[name] = decode_bytes(data, device="cuda")
+        before = k1.LAUNCHES.value
+        fast[name] = decode_bytes(data, path="fast", device="cuda")
+        check(k1.LAUNCHES.value == before
+              and np.array_equal(fast[name], compat[name]),
+              f"{name}: path='fast' takes the compat route (no K1 launch)")
+        ok, n = within_one(compat[name], decode_bytes(data, device="cpu"))
+        check(ok, f"{name}: compat decode_bytes(device='cuda') vs "
+              f"device='cpu': within +-1 u8, {n} of {compat[name].size} "
+              "values differ")
+    for name in (PROG_4K, SOF9_4K):
+        plan = parse_jpeg(read(name))
+        planes = [p.copy() for p in host_planes(plan)]
+        entropy = host_ms(lambda: host_planes(plan))
+        pixels = host_ms(lambda: k1.decode_planes_fused(planes, plan,
+                                                        "truncate", "cuda"))
+        print(f"{name}: host entropy {entropy:.3f} ms ({os.cpu_count()} "
+              f"cores), H2D + K1 + D2H {pixels:.3f} ms (median of 3, host "
+              "clock)", flush=True)
+    # Nested pools: each corpus worker's progressive decode starts its own
+    # scan threads (as in the JAX package). Eight progressive frames, host
+    # route, one worker against one per core.
+    prog8 = [read(PROG_4K)] * BATCH
+    for workers in (1, os.cpu_count()):
+        bd = BatchedCorpusDecoder(workers=workers, device="cuda")
+        bd.decode_all(prog8)  # warm-up
+        t0 = time.perf_counter()
+        bd.decode_all(prog8)
+        wall = time.perf_counter() - t0
+        bd.close()
+        print(f"{BATCH} 4K progressive frames, host route, {workers} "
+              f"worker(s): {wall:.3f} s = {BATCH / wall:.2f} frames/s (host "
+              "clock)", flush=True)
+
+    # The mixed corpus: the 4K progressive and SOF9 frames, one of each
+    # small image, and last (where the device thread claims) eight baseline
+    # 4K frames with a restart per MCU row.
+    names = ([PROG_4K] * MIXED_COPIES + [SOF9_4K] * MIXED_COPIES
+             + K1_ROUTE_SMALL + COMPAT_ROUTE
+             + [FRAMES_4K[i % 2] for i in range(BATCH)])
+    items = [read(n) for n in names]
+    for name in FRAMES_4K:
+        fast[name] = decode_bytes(read(name), path="fast", device="cuda")
+    k1_names = [n for n in names if n not in COMPAT_ROUTE]
+    n_geoms = len({PipelineGeometry.of(parse_jpeg(read(n))) for n in k1_names})
+    warm = BatchedCorpusDecoder(hybrid_device=True, device_batch=MIXED_BATCH,
+                                device="cuda")
+    warm.decode_all(items)
+    warm.close()
+    dec = BatchedCorpusDecoder(hybrid_device=True, device_batch=MIXED_BATCH,
+                               device="cuda")
+    k1.LAUNCHES.reset()
+    k3.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = dec.decode_all(items)
+    wall = time.perf_counter() - t0
+    k1_launches, k3_launches = k1.LAUNCHES.value, k3.LAUNCHES.value
+    dec.close()
+    check(all(r.ok for r in got),
+          f"mixed corpus: all {len(items)} items decoded "
+          f"({[r.error for r in got if not r.ok]})")
+    check(all(np.array_equal(r.rgb, fast[n] if n in k1_names else compat[n])
+              for r, n in zip(got, names)),
+          "mixed corpus: each K1 item == decode_bytes(path='fast', "
+          "device='cuda'), each compat item == decode_bytes(device='cuda')")
+    check(dec.pixel_launches == n_geoms,
+          f"mixed corpus: {dec.pixel_launches} K1 buckets == {n_geoms} K1 "
+          "geometries (progressive and SOF9 4K frames share the baseline "
+          "frames' bucket)")
+    check(dec.device_frames > 0 and k1_launches > 0 and k3_launches > 0,
+          f"mixed corpus went through the kernels: K1 launches {k1_launches}, "
+          f"K3 launches {k3_launches}, device-decoded frames "
+          f"{dec.device_frames}, frames handed back to the host "
+          f"{dec.fallback_frames}")
+    print(f"mixed corpus: {len(items)} items in {wall:.3f} s = "
+          f"{len(items) / wall:.2f} items/s (host clock, not a claim)",
+          flush=True)
+    for path, want in (("fast", fast), ("compat", compat)):
+        if path == "compat":
+            for n in set(k1_names) - set(compat):
+                compat[n] = decode_bytes(read(n), device="cuda")
+        cd = CorpusDecoder(path=path, device="cuda")
+        t0 = time.perf_counter()
+        res = cd.decode_all(items)
+        wall = time.perf_counter() - t0
+        cd.close()
+        check(all(r.ok and np.array_equal(r.rgb, want[n])
+                  for r, n in zip(res, names)),
+              f"CorpusDecoder(path='{path}'): every item == decode_bytes("
+              f"path='{path}', device='cuda') ({len(items)} items, "
+              f"{wall:.3f} s)")
+    return k1_launches, k3_launches
 
 
 def idct_roofline(dev) -> tuple[dict, dict]:
@@ -1112,11 +1297,14 @@ def main() -> int:
         print(f"chip_smoke: the jpeg_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     try:
         kernels = run()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"smoke: {time.perf_counter() - t0:.1f} s, builds included",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,24 @@
 """jpeg_tpu_torch: the PyTorch + CUDA port of jpeg_tpu for NVIDIA Hopper.
 
 A second package beside ``jpeg_tpu`` (the JAX reference, which it never
-imports). Three slices are ported, all for 8-bit baseline Huffman JPEGs
-(YCbCr or gray), and each of the JAX package's Pallas kernels has a Hopper
-kernel.
+imports). It decodes every 8-bit DCT stream the JAX package decodes
+(baseline or progressive, Huffman or arithmetic, gray, YCbCr, RGB-direct,
+CMYK, YCCK), encodes baseline Huffman, and each of the JAX package's Pallas
+kernels has a Hopper kernel.
 
 The hybrid corpus decode:
 
 - host parse (``io/container.py``) and host C++ entropy decode
-  (``runtime``, the JAX package's C++ library bound with ctypes);
+  (``runtime``: the port's copy of the JAX package's C++ library, bound
+  with ctypes);
 - K3, the lane-per-restart-segment Huffman kernel
-  (``entropy/device_huffman.py``, ``csrc/huffman_lanes.cu``);
+  (``entropy/device_huffman.py``, ``csrc/huffman_lanes.cu``; the JAX
+  package's names in ``entropy/device_window.py``);
 - K1, the fused dequant + IDCT + upsample + colour kernel
   (``ops/fused_plane.py``, ``csrc/fused_plane.cu``);
-- the corpus decoder (``parallel/pipeline.py``).
+- the corpus decoders (``parallel/pipeline.py``: ``BatchedCorpusDecoder``
+  and the thread-pooled ``CorpusDecoder``), and ``decode_batch``, the compat
+  pipeline over a batch (``parallel/batch.py``).
 
 The encoder (``models/encoder.py``):
 
@@ -41,4 +46,9 @@ __version__ = "0.1.0"
 from jpeg_tpu_torch.io.container import DecodePlan, JPEGError, parse_jpeg  # noqa: F401
 from jpeg_tpu_torch.models.decoder import decode_bytes, decode_file  # noqa: F401
 from jpeg_tpu_torch.models.encoder import encode_rgb, encode_rgb_device  # noqa: F401
-from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder, DecodeResult  # noqa: F401
+from jpeg_tpu_torch.parallel.batch import decode_batch  # noqa: F401
+from jpeg_tpu_torch.parallel.pipeline import (  # noqa: F401
+    BatchedCorpusDecoder,
+    CorpusDecoder,
+    DecodeResult,
+)

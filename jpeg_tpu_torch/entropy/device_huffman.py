@@ -44,6 +44,12 @@ MAX_LANE_BYTES = 1 << 28  # the kernel's per-block start bits are int32
 LAUNCHES = LaunchCounter()
 
 
+class BatchMismatch(ValueError):
+    """A batch K3 does not take, found before anything is launched: plans
+    that differ in slot structure or Huffman tables, or a restart segment
+    too long for a lane."""
+
+
 def _lut11(table) -> np.ndarray:
     """[T11] i32: 11-bit peek -> len | sym << 8 for codes of length <= 11,
     else 0 (resolved by the canonical walk)."""
@@ -193,9 +199,10 @@ class LaneBatch:
 
 
 def prepare_lane_batch(plans: list) -> LaneBatch:
-    """Lay out a batch of plans as lanes. Raises ``ValueError`` unless every
-    image shares the first one's slot structure and Huffman tables, and
-    for a segment of ``MAX_LANE_BYTES`` or more."""
+    """Lay out a batch of plans as lanes. Raises :class:`BatchMismatch` (a
+    ``ValueError``) unless every image shares the first one's slot
+    structure and Huffman tables, and for a segment of ``MAX_LANE_BYTES``
+    or more."""
     if not plans:
         raise ValueError("empty batch")
     p0 = plans[0]
@@ -204,7 +211,7 @@ def prepare_lane_batch(plans: list) -> LaneBatch:
     for p in plans[1:]:
         if not np.array_equal(slot_rows(p), slots) or not all(
                 np.array_equal(a, b) for a, b in zip(lane_tables(p), tables)):
-            raise ValueError(
+            raise BatchMismatch(
                 "in-kernel batch requires identical slot structure and "
                 "Huffman tables across images")
     bpm = len(slots)
@@ -214,7 +221,7 @@ def prepare_lane_batch(plans: list) -> LaneBatch:
         first = row
         for s in p.segments:
             if s.byte_end - s.byte_start >= MAX_LANE_BYTES:
-                raise ValueError("restart segment of "
+                raise BatchMismatch("restart segment of "
                                  f"{s.byte_end - s.byte_start} bytes: the lane "
                                  f"decoder takes < {MAX_LANE_BYTES}")
             starts.append(byte_base + s.byte_start)

@@ -1,23 +1,26 @@
 """The decode model: JPEG bytes -> RGB u8, through the compat or the fast path.
 
-Counterpart of ``jpeg_tpu/models/decoder.py`` for 8-bit baseline Huffman
-streams (YCbCr or gray), with its defaults:
+Counterpart of ``jpeg_tpu/models/decoder.py`` for 8-bit DCT streams:
+baseline and progressive, Huffman or arithmetic coded, in gray, YCbCr,
+RGB-direct, CMYK or YCCK, with its defaults:
 
 - the compat path (``path="compat"``, the default of :func:`decode_bytes`
   and the route of :func:`decode_file`): C++ entropy decode into
   ``[total_blocks, 64]`` int32 blocks (:func:`decode_coefficients_host`),
   then per component one ``[n, 64] @ [64, 64]`` fp32 product with the fused
   dequant + unzigzag + IDCT matrix (``torch.matmul``, TF32 refused),
-  assembly, replicate upsample and colour (:func:`decode_plan`);
-- the fast path (``path="fast"``, and the corpus decoder's route): entropy
-  decode into int16 coefficient planes on the host (C++ runtime) or on the
-  device (K3 + :func:`coefficient_planes_from_blocks`), then K1
-  (``ops/fused_plane.py``) for dequant, IDCT, upsample and colour. It is
-  within +-1 u8 of the compat path.
+  assembly, replicate or fancy upsample and colour, or the level-shifted
+  planes themselves (``color_space="ycbcr"``) (:func:`decode_plan`);
+- the fast path (``path="fast"``, and the corpus decoder's route) for gray
+  and YCbCr streams: entropy decode into int16 coefficient planes on the
+  host (C++ runtime, every entropy coding) or on the device (K3 +
+  :func:`coefficient_planes_from_blocks`), then K1 (``ops/fused_plane.py``)
+  for dequant, IDCT, upsample and colour. It is within +-1 u8 of the compat
+  path. Other colour models take the compat path, as in the JAX package.
 
-Routes of the JAX package that lead off these slices raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item; nothing falls back
-silently.
+Lossless and 12-bit streams, ``engine="oracle"`` and ``idct_mode="approx"``
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item; nothing falls
+back silently.
 """
 
 from __future__ import annotations
@@ -28,11 +31,24 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch.io.container import DecodePlan, parse_jpeg
-from jpeg_tpu_torch.ops.color import grayscale_to_rgb, ycbcr_to_rgb
+from jpeg_tpu_torch.ops.color import (
+    cmyk_to_rgb,
+    grayscale_to_rgb,
+    quantize_samples,
+    rgb_direct,
+    ycbcr_to_rgb,
+)
 from jpeg_tpu_torch.ops.idct import fused_idct_matrix
 from jpeg_tpu_torch.ops.upsample import component_plane
 from jpeg_tpu_torch.ops.zigzag import NATURAL_TO_ZIGZAG
-from jpeg_tpu_torch.runtime import native_decode_coefficients, native_decode_planes
+from jpeg_tpu_torch.runtime import (
+    native_decode_arith_coefficients,
+    native_decode_arith_planes,
+    native_decode_coefficients,
+    native_decode_planes,
+    native_decode_progressive,
+    native_decode_progressive_planes,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +96,7 @@ class PipelineGeometry:
         return out
 
 
-def not_ported(what: str, item: int):
+def not_ported(what: str, item: int | str):
     """The error for a route this package does not run yet."""
     return NotImplementedError(
         f"{what} is not ported to jpeg_tpu_torch yet "
@@ -88,18 +104,19 @@ def not_ported(what: str, item: int):
 
 
 def check_ported(plan: DecodePlan) -> None:
-    """Raise ``NotImplementedError`` for streams off the ported slices (8-bit
-    baseline Huffman, YCbCr or gray)."""
+    """Raise ``NotImplementedError`` for streams off the ported slices: the
+    port decodes every 8-bit DCT stream, not lossless or 12-bit ones."""
     if plan.lossless:
         raise not_ported("lossless (SOF3) decode", 7)
-    if plan.progressive:
-        raise not_ported("progressive decode", 3)
-    if plan.arith_code:
-        raise not_ported("arithmetic-coded decode", 3)
     if plan.precision != 8:
-        raise not_ported(f"{plan.precision}-bit decode", 3)
-    if plan.color_model not in ("ycbcr", "gray"):
-        raise not_ported(f"{plan.color_model} colour (compat pipeline)", 1)
+        raise not_ported(f"{plan.precision}-bit decode", "3b")
+
+
+def fast_path_takes(plan: DecodePlan) -> bool:
+    """Whether K1 decodes the plan's colour: gray or YCbCr. K1 bakes in the
+    YCbCr matrix and writes three channels, so RGB-direct, CMYK and YCCK
+    streams take the compat path, as in the JAX package."""
+    return plan.color_model in ("ycbcr", "gray")
 
 
 def coefficient_planes_from_blocks(coeffs: torch.Tensor,
@@ -139,75 +156,127 @@ def decode_coefficients_host(plan: DecodePlan, engine: str = "auto") -> np.ndarr
     blocks, DC prediction applied, MCU stream order.
 
     ``engine``: ``"auto"`` and ``"native"`` run the C++ runtime (a failed
-    build raises: there is no fallback); ``"oracle"``, the JAX package's
-    NumPy decoder, is not ported. The array is the runtime's per-thread
-    scratch buffer (``native_decode_coefficients``): consume or copy it
-    before this thread decodes another image of the same block count."""
+    build raises: there is no fallback): progressive plans (SOF2, SOF10)
+    through ``native_decode_progressive``, sequential arithmetic (SOF9)
+    through ``native_decode_arith_coefficients``, baseline Huffman through
+    ``native_decode_coefficients``. ``"oracle"``, the JAX package's NumPy
+    decoders, is not ported. A baseline Huffman plan's array is the
+    runtime's per-thread scratch buffer: consume or copy it before this
+    thread decodes another image of the same block count."""
     check_ported(plan)
     if engine == "oracle":
         raise not_ported("engine='oracle'", 1)
     if engine not in ("auto", "native"):
         raise ValueError(f"unknown engine {engine!r}")
+    if plan.progressive:
+        return native_decode_progressive(plan)
+    if plan.arith_code:
+        return native_decode_arith_coefficients(plan)
     return native_decode_coefficients(plan)
+
+
+def progressive_planes(plan: DecodePlan) -> list[np.ndarray]:
+    """Progressive (SOF2 or SOF10) entropy decode -> int16 coefficient planes
+    in K1's layout, all in C++. The planes are the runtime's per-thread
+    scratch buffers (``native_decode_progressive_planes``): consume or copy
+    them before this thread decodes another image of the same geometry."""
+    return native_decode_progressive_planes(plan)
+
+
+def host_planes(plan: DecodePlan, n_threads: int | None = None
+                ) -> list[np.ndarray]:
+    """The fast path's host entropy stage for any 8-bit DCT plan -> int16
+    planes in K1's layout, this thread's scratch buffers: progressive plans
+    through :func:`progressive_planes`, SOF9 plans through
+    ``native_decode_arith_planes``, baseline Huffman through
+    ``native_decode_planes`` with ``n_threads``. The first two take the cpu
+    count's threads, as in the JAX package."""
+    if plan.progressive:
+        return progressive_planes(plan)
+    if plan.arith_code:
+        return native_decode_arith_planes(plan)
+    return native_decode_planes(plan, n_threads)
 
 
 def _pipeline(coeffs: torch.Tensor, matrices: torch.Tensor,
               geom: PipelineGeometry, rounding: str,
-              upsample: str = "replicate") -> torch.Tensor:
-    """coeffs [total_blocks, 64] int32 (zigzag), matrices [n_comp, 64, 64]
-    f32, on one device -> RGB [H, W, 3] u8 there. Per component one product
-    at full fp32, then assembly, upsample, crop and colour."""
+              upsample: str = "replicate",
+              color_space: str = "rgb") -> torch.Tensor:
+    """coeffs [..., total_blocks, 64] int32 (zigzag), matrices [...,
+    n_comp, 64, 64] f32, on one device -> RGB [..., H, W, 3] u8 there. Per
+    component one product at full fp32 (one for the whole batch), then
+    assembly, upsample, crop and colour. ``color_space="ycbcr"`` returns the
+    level-shifted full-resolution planes instead: 3 channels for gray (the
+    missing two at 128) and YCbCr streams, 4 for CMYK and YCCK."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise ValueError(
             "the compat decode needs full fp32 products: turn off "
             "torch.backends.cuda.matmul.allow_tf32 (or "
             "torch.set_float32_matmul_precision('highest'))")
-    mcu_view = coeffs.to(torch.float32).reshape(geom.n_mcus,
-                                                geom.blocks_per_mcu, 64)
+    if color_space not in ("rgb", "ycbcr"):
+        raise ValueError(f"unknown color_space {color_space!r}")
+    batch = coeffs.shape[:-2]
+    mcu_view = coeffs.to(torch.float32).reshape(
+        *batch, geom.n_mcus, geom.blocks_per_mcu, 64)
     planes = []
     for ci, ((h, v), (off, k)) in enumerate(
             zip(geom.sampling, geom.component_slot_ranges())):
-        pixels = torch.matmul(mcu_view[:, off : off + k].reshape(-1, 64),
-                              matrices[ci])
+        pixels = torch.matmul(
+            mcu_view[..., off : off + k, :].reshape(*batch, -1, 64),
+            matrices[..., ci, :, :])
         planes.append(component_plane(
-            pixels.reshape(-1, 8, 8), geom.mcus_y, geom.mcus_x, v, h,
+            pixels.reshape(*batch, -1, 8, 8), geom.mcus_y, geom.mcus_x, v, h,
             geom.v_max, geom.h_max, geom.height, geom.width, upsample))
+    if color_space == "ycbcr":
+        chans = [quantize_samples(p + 128.0, rounding) for p in planes]
+        while len(chans) < 3:
+            chans.append(torch.full_like(chans[0], 128))
+        return torch.stack(chans, dim=-1)
     if len(planes) == 1:
         rgb = grayscale_to_rgb(planes[0], rounding)
-    else:
+    elif len(planes) == 3 and geom.color_model == "rgb":
+        rgb = rgb_direct(*planes, rounding=rounding)
+    elif len(planes) == 3:
         rgb = ycbcr_to_rgb(*planes, rounding=rounding)
-    return rgb.permute(1, 2, 0)
+    elif len(planes) == 4:
+        rgb = cmyk_to_rgb(*planes, rounding=rounding,
+                          ycck=geom.color_model == "ycck")
+    else:
+        raise ValueError(f"unsupported component count {len(planes)}")
+    return rgb.movedim(-3, -1)
 
 
 def decode_plan(plan: DecodePlan, rounding: str = "truncate",
                 engine: str = "auto", coefficients: np.ndarray | None = None,
                 upsample: str = "replicate", color_space: str = "rgb",
                 device="cuda") -> np.ndarray:
-    """The compat decode: DecodePlan -> RGB [H, W, 3] u8 numpy array, the
-    dense stage on ``device``. ``coefficients`` (``[total_blocks, 64]``
-    int32 zigzag) skips the entropy decode. Only replicate upsampling and
-    RGB output are ported."""
+    """The compat decode: DecodePlan -> RGB [H, W, 3] u8 numpy array (or the
+    level-shifted planes with ``color_space="ycbcr"``), the dense stage on
+    ``device``. ``coefficients`` (``[total_blocks, 64]`` int32 zigzag) skips
+    the entropy decode. ``upsample``: ``"replicate"`` (the reference's) or
+    ``"fancy"`` (libjpeg's triangular filter)."""
     check_ported(plan)
-    if color_space != "rgb":
-        raise not_ported(f"color_space={color_space!r}", 1)
     if coefficients is None:
         coefficients = decode_coefficients_host(plan, engine)
     coeffs = torch.as_tensor(np.asarray(coefficients, np.int32), device=device)
     matrices = torch.as_tensor(plan_matrices(plan), device=device)
     return _pipeline(coeffs, matrices, PipelineGeometry.of(plan), rounding,
-                     upsample).cpu().numpy()
+                     upsample, color_space).cpu().numpy()
 
 
 def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
                      device="cuda", idct_mode: str = "exact") -> np.ndarray:
-    """C++ plane-layout entropy + K1 on ``device`` -> RGB [H, W, 3] u8."""
+    """C++ plane-layout entropy (baseline, progressive or SOF9) + K1 on
+    ``device`` -> RGB [H, W, 3] u8. Plans K1 does not take
+    (:func:`fast_path_takes`) go to :func:`decode_plan` on ``device``."""
     from jpeg_tpu_torch.ops.fused_plane import decode_planes_fused
 
     if idct_mode != "exact":
         raise not_ported(f"idct_mode={idct_mode!r}", 1)
     check_ported(plan)
-    return decode_planes_fused(native_decode_planes(plan), plan, rounding,
-                               device)
+    if not fast_path_takes(plan):
+        return decode_plan(plan, rounding, device=device)
+    return decode_planes_fused(host_planes(plan), plan, rounding, device)
 
 
 def decode_bytes(data: bytes, rounding: str = "truncate",
@@ -217,19 +286,18 @@ def decode_bytes(data: bytes, rounding: str = "truncate",
     """JPEG bytes -> RGB [H, W, 3] u8 numpy array, decoded on ``device``.
 
     ``path="compat"`` (default, as in the JAX package) runs
-    :func:`decode_plan` with ``engine``; ``path="fast"`` runs K1
-    (:func:`decode_plan_fast`, which alone reads ``idct_mode``), within
-    +-1 u8 of it. Only replicate upsampling and RGB output are ported."""
+    :func:`decode_plan` with ``engine``, ``upsample`` and ``color_space``;
+    ``path="fast"`` with RGB output runs K1 (:func:`decode_plan_fast`,
+    which alone reads ``idct_mode``) for gray and YCbCr streams, within
+    +-1 u8 of compat, and ignores ``upsample`` there as the JAX package
+    does. Every other stream or colour space takes the compat path."""
     if path not in ("compat", "fast"):
         raise ValueError(f"unknown path {path!r}")
-    if upsample != "replicate":
-        raise not_ported(f"upsample={upsample!r}", 1)
-    if color_space != "rgb":
-        raise not_ported(f"color_space={color_space!r}", 1)
     plan = parse_jpeg(data)
-    if path == "fast":
+    if path == "fast" and color_space == "rgb" and fast_path_takes(plan):
         return decode_plan_fast(plan, rounding, device, idct_mode)
-    return decode_plan(plan, rounding, engine, device=device)
+    return decode_plan(plan, rounding, engine, upsample=upsample,
+                       color_space=color_space, device=device)
 
 
 def apply_exif_orientation(rgb: np.ndarray, orientation: int | None) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""YCbCr->RGB and the u8 narrowing, on torch tensors.
+"""Colour conversions and the u8 narrowing, on torch tensors.
 
-Counterpart of ``jpeg_tpu/ops/color.py`` for 8-bit samples. The reference
+Counterpart of ``jpeg_tpu/ops/color.py`` for 8-bit samples: YCbCr, gray,
+RGB-direct and Adobe CMYK / YCCK to RGB. The reference
 derives G from the already computed R and B (``src/jpeg/decoder.rs:392-402``);
 the operations run in that order, in float32, so the truncate mode matches
 the reference bit for bit. K1 (``csrc/fused_plane.cu``) repeats the same
@@ -33,6 +34,17 @@ def quantize_u8(x: torch.Tensor, rounding: str = "truncate") -> torch.Tensor:
     return x.clamp(0.0, 255.0).to(torch.int32).to(torch.uint8)
 
 
+def quantize_samples(x: torch.Tensor, rounding: str = "truncate",
+                     maxval: int = 255) -> torch.Tensor:
+    """Clamp to [0, maxval] and narrow: u8 at 8-bit precision. Wider
+    samples (12-bit, u16) are not ported."""
+    if maxval > 255:
+        from jpeg_tpu_torch.models.decoder import not_ported
+
+        raise not_ported("12-bit samples", "3b")
+    return quantize_u8(x, rounding)
+
+
 def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
                  rounding: str = "truncate") -> torch.Tensor:
     """Centered float32 planes [..., H, W] -> RGB u8 [..., 3, H, W] (planar,
@@ -51,3 +63,38 @@ def grayscale_to_rgb(y: torch.Tensor, rounding: str = "truncate") -> torch.Tenso
     """Centered gray plane [..., H, W] -> replicated RGB u8 [..., 3, H, W]."""
     u = quantize_u8(y + 128.0, rounding)
     return torch.stack([u, u, u], dim=-3)
+
+
+def cmyk_to_rgb(c: torch.Tensor, m: torch.Tensor, y: torch.Tensor,
+                k: torch.Tensor, rounding: str = "truncate",
+                ycck: bool = False) -> torch.Tensor:
+    """Adobe 4-component (CMYK / YCCK) centered planes [..., H, W] -> RGB
+    u8 [..., 3, H, W].
+
+    Adobe CMYK JPEGs store inverted ink (s = 255 - ink), so ``R = s_C *
+    s_K / 255`` on the stored samples (libjpeg's output read as Pillow's
+    ``CMYK;I``). For YCCK (APP14 transform 2) the first three planes are
+    YCbCr of the non-inverted CMY: convert, un-invert, then apply K. The
+    YCbCr products run in the JAX package's order."""
+    s_k = (k + 128.0).clamp(0.0, 255.0)
+    if ycck:
+        c_blue = torch.tensor(C_BLUE, dtype=torch.float32, device=c.device)
+        c_red = torch.tensor(C_RED, dtype=torch.float32, device=c.device)
+        c_green = torch.tensor(C_GREEN, dtype=torch.float32, device=c.device)
+        r = c + K_RED * y  # here (c, m, y) = (Y, Cb, Cr)
+        b = c + K_BLUE * m
+        g = (c - c_blue * b - c_red * r) / c_green
+        stored = [255.0 - (p + 128.0).clamp(0.0, 255.0) for p in (r, g, b)]
+    else:
+        stored = [(p + 128.0).clamp(0.0, 255.0) for p in (c, m, y)]
+    scale = s_k * torch.tensor(1.0 / 255.0, dtype=torch.float32).item()
+    rgb = torch.stack(stored, dim=-3) * scale.unsqueeze(-3)
+    return quantize_u8(rgb, rounding)
+
+
+def rgb_direct(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               rounding: str = "truncate") -> torch.Tensor:
+    """3-component stream already in RGB (Adobe transform 0, or component
+    ids R, G, B): level shift only -> RGB u8 [..., 3, H, W]."""
+    return quantize_u8(torch.stack([r + 128.0, g + 128.0, b + 128.0], dim=-3),
+                       rounding)

@@ -1,18 +1,33 @@
-"""Batched dense stages: one kernel launch for a bucket of same-geometry
-images.
+"""Batched dense stages: one launch or product for a bucket of
+same-geometry images.
 
-Counterparts of ``jpeg_tpu.parallel.batch.decode_batch_fast`` (K1) and
-``encode_batch_device`` (K2). The JAX versions vmap the Pallas kernel over
-the batch; here the batch is a written out dimension of the kernel's grid.
-Mesh sharding is not ported (ROADMAP.md, 'Still to port' item 8).
+Counterparts of ``jpeg_tpu.parallel.batch``'s ``decode_batch`` (the compat
+pipeline), ``decode_batch_fast`` (K1) and ``encode_batch_device`` (K2). The
+JAX versions vmap over the batch; here the batch is a written out dimension
+of the kernel's grid, or of the compat route's products. Mesh sharding is
+not ported (ROADMAP.md, 'Still to port' item 8).
 """
 
 from __future__ import annotations
 
 import torch
 
+from jpeg_tpu_torch.models.decoder import _pipeline, not_ported
 from jpeg_tpu_torch.ops.fused_encode import fused_plane_encode
 from jpeg_tpu_torch.ops.fused_plane import fused_plane_decode
+
+
+def decode_batch(coeffs, matrices, geom, rounding: str = "truncate",
+                 mesh=None, device="cuda") -> torch.Tensor:
+    """The compat pipeline over a same-geometry batch: coeffs [B,
+    total_blocks, 64] int32 (zigzag) and matrices [B, n_comp, 64, 64] f32
+    (numpy arrays or tensors) -> RGB u8 [B, H, W, 3] on ``device``, with one
+    batched fp32 ``torch.matmul`` per component for the whole batch."""
+    if mesh is not None:
+        raise not_ported("decode_batch(mesh=...)", 8)
+    c = torch.as_tensor(coeffs).to(device)
+    m = torch.as_tensor(matrices).to(device)
+    return _pipeline(c, m, geom, rounding)
 
 
 def decode_batch_fast(planes_batch, qtabs_batch, geom,

@@ -1,22 +1,29 @@
 """Corpus decode: host entropy workers and a device entropy thread feeding K1.
 
-Counterpart of ``jpeg_tpu.parallel.pipeline.BatchedCorpusDecoder``. Images
-are parsed and entropy-decoded on host threads (the C++ runtime releases the
-GIL) into int16 coefficient planes, grouped by geometry, and each group runs
-through one K1 launch.
+Counterparts of ``jpeg_tpu.parallel.pipeline``'s ``CorpusDecoder`` (a thread
+pool over the single-image decode, compat or fast path) and
+``BatchedCorpusDecoder``. In the latter, images are parsed and
+entropy-decoded on host threads (the C++ runtime releases the GIL) into
+int16 coefficient planes, whatever their entropy coding, grouped by
+geometry, and each group runs through one K1 launch. RGB-direct, CMYK and
+YCCK images, which K1 does not take, are decoded inline by their worker
+through the compat path on the decoder's device.
 
 With ``hybrid_device=True`` a device thread also claims batches from the
-back of the work list and decodes their entropy with K3 while the host
-threads drain the front. Only three things send a claimed image to the host
-route: a per-lane error bit, a plan the device route does not take
-(:meth:`BatchedCorpusDecoder._device_eligible`), and a batch whose Huffman
-tables or slot structure differ (``ValueError`` raised before launch). Any
+back of the work list and decodes their entropy with K3
+(``entropy/device_window.py::decode_coefficients_device5_batch``) while the
+host threads drain the front. Only three things send a claimed image to the
+host route: a per-lane error bit, a plan the device route does not take
+(:meth:`BatchedCorpusDecoder._device_eligible`: progressive, arithmetic,
+RGB-direct, CMYK and YCCK plans among them), and a batch whose Huffman
+tables or slot structure differ (``BatchMismatch``, raised before launch). Any
 other failure (a kernel that does not build, a launch or CUDA error) raises
 out of :meth:`BatchedCorpusDecoder.decode_all`.
 
-Per-image isolation: an image that cannot be decoded on the host route,
-including a stream off the ported slice (``NotImplementedError``), becomes an
-error record and never stops the corpus.
+Per-image isolation: an image that cannot be decoded, including a stream
+off the ported slice (``NotImplementedError``), becomes an error record and
+never stops the corpus. A build, launch or CUDA failure (a ``RuntimeError``
+other than ``NotImplementedError``) is not the image's fault and raises.
 """
 
 from __future__ import annotations
@@ -31,17 +38,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from jpeg_tpu_torch.entropy import device_huffman
+from jpeg_tpu_torch.entropy import device_huffman, device_window
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models.decoder import (
     PipelineGeometry,
     check_ported,
     coefficient_planes_from_blocks,
+    decode_plan,
+    decode_plan_fast,
+    fast_path_takes,
+    host_planes,
     not_ported,
 )
 from jpeg_tpu_torch.ops.fused_plane import plan_quant_patterns
 from jpeg_tpu_torch.parallel.batch import decode_batch_fast
-from jpeg_tpu_torch.runtime import native_decode_planes
 
 # Images per device claim. A 4K frame with a restart marker per MCU row has
 # 135 lanes, so 8 frames give K3 1,080 lanes.
@@ -57,6 +67,80 @@ class DecodeResult:
     @property
     def ok(self) -> bool:
         return self.error is None
+
+
+def _name(item) -> str:
+    return item if isinstance(item, str) else "<bytes>"
+
+
+def _read(item) -> bytes:
+    if isinstance(item, str):
+        with open(item, "rb") as f:
+            return f.read()
+    return item
+
+
+def _error_text(e: Exception) -> str:
+    """The error record of an image that failed; re-raises a failure that
+    is not the image's (a build, launch or CUDA error)."""
+    if isinstance(e, RuntimeError) and not isinstance(e, NotImplementedError):
+        raise e
+    return f"{type(e).__name__}: {e}"
+
+
+class CorpusDecoder:
+    """Thread-pooled single-image decode of many JPEGs on ``device``.
+
+    ``path="compat"`` runs :func:`~jpeg_tpu_torch.models.decoder.decode_plan`
+    per image, ``path="fast"``
+    :func:`~jpeg_tpu_torch.models.decoder.decode_plan_fast` (K1 for gray and
+    YCbCr streams, compat for the others). The pool persists across calls.
+    """
+
+    def __init__(self, workers: int | None = None, path: str = "compat",
+                 rounding: str = "truncate", idct_mode: str = "exact",
+                 device="cuda"):
+        if path not in ("compat", "fast"):
+            raise ValueError(f"unknown path {path!r}")
+        if idct_mode != "exact":
+            raise not_ported(f"idct_mode={idct_mode!r}", 1)
+        self.workers = workers or os.cpu_count() or 1
+        self.path = path
+        self.rounding = rounding
+        self.idct_mode = idct_mode
+        self.device = torch.device(device)
+        self._pool = None
+
+    def close(self) -> None:
+        """Shut down the worker threads (idle between calls)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+        self._pool = None
+
+    def _get_pool(self):
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=self.workers)
+        return self._pool
+
+    def _decode_one(self, item) -> DecodeResult:
+        try:
+            plan = parse_jpeg(_read(item))
+            if self.path == "fast":
+                rgb = decode_plan_fast(plan, self.rounding, self.device,
+                                       self.idct_mode)
+            else:
+                rgb = decode_plan(plan, self.rounding, device=self.device)
+            return DecodeResult(_name(item), rgb)
+        except Exception as e:  # noqa: BLE001 — per-image isolation boundary
+            return DecodeResult(_name(item), None, error=_error_text(e))
+
+    def decode_all(self, items) -> list[DecodeResult]:
+        """Decode a list of paths or byte strings; order preserved."""
+        return list(self._get_pool().map(self._decode_one, items))
+
+    def decode_iter(self, items):
+        """:meth:`decode_all` as a generator, for streaming consumers."""
+        yield from self._get_pool().map(self._decode_one, items)
 
 
 class BatchedCorpusDecoder:
@@ -100,30 +184,28 @@ class BatchedCorpusDecoder:
             self._dev_pool = ThreadPoolExecutor(max_workers=1)
         return self._pool, self._dev_pool
 
-    @staticmethod
-    def _name(item) -> str:
-        return item if isinstance(item, str) else "<bytes>"
-
-    @staticmethod
-    def _read(item) -> bytes:
-        if isinstance(item, str):
-            with open(item, "rb") as f:
-                return f.read()
-        return item
-
     def _entropy_one(self, item):
-        """Host route -> (name, plan, geom, planes, error)."""
+        """Host route -> (name, plan, geom, planes, error). Planes of a
+        colour model K1 does not take are decoded here through the compat
+        path on ``self.device``: geom is then ``"compat"`` and planes the
+        RGB image."""
         try:
-            plan = parse_jpeg(self._read(item))
+            plan = parse_jpeg(_read(item))
             check_ported(plan)
-            # native_decode_planes hands back this thread's scratch buffers:
-            # copy before the thread decodes another same-geometry image.
-            planes = [p.copy() for p in native_decode_planes(plan, n_threads=1)]
-            return (self._name(item), plan, PipelineGeometry.of(plan), planes,
+            if not fast_path_takes(plan):
+                rgb = decode_plan(plan, self.rounding, device=self.device)
+                return (_name(item), plan, "compat", rgb, None)
+            # The runtime hands back this thread's scratch buffers: copy
+            # before the thread decodes another same-geometry image, or the
+            # stored planes are overwritten (a flake the JAX package met in
+            # its hybrid corpus test). Baseline Huffman decodes on this
+            # thread alone; progressive and arithmetic decodes take the cpu
+            # count's threads, as in the JAX package.
+            planes = [p.copy() for p in host_planes(plan, n_threads=1)]
+            return (_name(item), plan, PipelineGeometry.of(plan), planes,
                     None)
         except Exception as e:  # noqa: BLE001 — per-image isolation boundary
-            return (self._name(item), None, None, None,
-                    f"{type(e).__name__}: {e}")
+            return (_name(item), None, None, None, _error_text(e))
 
     @staticmethod
     def _device_eligible(plan) -> bool:
@@ -176,7 +258,7 @@ class BatchedCorpusDecoder:
                 geom = PipelineGeometry.of(p)
                 planes = [x.cpu().numpy()
                           for x in coefficient_planes_from_blocks(c, geom)]
-                parsed[i] = (self._name(items[i]), p, geom, planes, None)
+                parsed[i] = (_name(items[i]), p, geom, planes, None)
                 with lk:
                     self.device_frames += 1
 
@@ -186,7 +268,7 @@ class BatchedCorpusDecoder:
             keep, plans, host = [], [], []
             for i in idxs:
                 try:
-                    plan = parse_jpeg(self._read(items[i]))
+                    plan = parse_jpeg(_read(items[i]))
                 except Exception:  # noqa: BLE001 — bad input, not a device
                     # failure: the host route's isolation boundary records it
                     host.append(i)
@@ -210,12 +292,12 @@ class BatchedCorpusDecoder:
                     if not plans:
                         continue
                     try:
-                        batch = device_huffman.prepare_lane_batch(plans)
-                    except ValueError:  # tables or slots differ: host route
+                        coeffs, err = (
+                            device_window.decode_coefficients_device5_batch(
+                                plans, self.device, to_host=False))
+                    except device_huffman.BatchMismatch:  # before launch
                         to_host(idxs)
                         continue
-                    coeffs, err = device_huffman.decode_prepared_batch(
-                        batch, self.device)
                     with lk:
                         self.entropy_launches += 1
                     # One launch in flight: finalize the previous claim only
@@ -247,6 +329,8 @@ class BatchedCorpusDecoder:
         for i, (name, plan, geom, planes, err) in enumerate(parsed):
             if err is not None:
                 results[i] = DecodeResult(name, None, error=err)
+            elif geom == "compat":  # decoded inline by its worker
+                results[i] = DecodeResult(name, planes)
             else:
                 buckets.setdefault(geom, []).append(i)
         for geom, idxs in buckets.items():

@@ -6,11 +6,14 @@ Two kinds of shared library, both with a plain C interface:
   (Hopper), one library per kernel so each keeps its own flags; headers
   they share (``csrc/*.cuh``) are found through ``-I csrc`` and hashed
   with the source that includes them;
-- the host C++ entropy runtime (``jpeg_tpu/runtime/native/jpegtpu.cpp``),
-  compiled by ``g++`` without the JAX package's profile-guided step (its
-  training script imports jax), and the C++ entropy encoder
-  (``jpeg_tpu/runtime/native/jpegtpu_enc.cpp``), compiled by ``g++`` as a
-  library of its own.
+- the host C++ entropy runtime (``runtime/native/jpegtpu.cpp``, the port's
+  copy of the JAX package's), compiled by ``g++`` without the JAX package's
+  profile-guided step (its training script imports jax), and the C++
+  entropy encoder (``runtime/native/jpegtpu_enc.cpp``), compiled by ``g++``
+  as a library of its own.
+
+Every source and header lies inside this package: nothing is read from the
+JAX package's tree.
 
 Libraries land in ``jpeg_tpu_torch/build/`` (listed in ``.gitignore``) under
 a name that carries a hash of the sources, the command and the host name,
@@ -31,7 +34,6 @@ import subprocess
 import threading
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REPO_DIR = os.path.dirname(PACKAGE_DIR)
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 

@@ -137,17 +137,24 @@ def test_component_plane_equals_jax(v, h, v_max, h_max):
 
 
 def test_off_slice_options_of_the_compat_route_raise():
+    """``engine='oracle'`` still raises; fancy upsampling, once refused,
+    equals the JAX package's (exactly on assembled planes, +-1 u8 on
+    pixels)."""
     data = _stream("2x2")
     plan = parse_jpeg(data)
     with pytest.raises(NotImplementedError, match="engine='oracle'"):
         decode_bytes(data, engine="oracle", device="cpu")
     with pytest.raises(NotImplementedError, match="engine='oracle'"):
         dec.decode_coefficients_host(plan, "oracle")
-    with pytest.raises(NotImplementedError, match="upsample='fancy'"):
-        dec.decode_plan(plan, upsample="fancy", device="cpu")
-    with pytest.raises(NotImplementedError, match="upsample='fancy'"):
-        upsample.component_plane(torch.zeros((1, 8, 8)), 1, 1, 1, 1, 1, 1, 8, 8,
-                                 upsample="fancy")
+    got = dec.decode_plan(plan, upsample="fancy", device="cpu")
+    want = np.asarray(ref_dec.decode_plan(ref_parse(data), upsample="fancy"))
+    _share_within_one(got, want)
+    blocks = np.random.default_rng(5).normal(0, 40, (1, 8, 8)).astype(np.float32)
+    np.testing.assert_array_equal(
+        upsample.component_plane(torch.from_numpy(blocks), 1, 1, 1, 1, 2, 2,
+                                 16, 16, upsample="fancy").numpy(),
+        np.asarray(ref_up.component_plane(blocks, 1, 1, 1, 1, 2, 2, 16, 16,
+                                          upsample="fancy")))
     with pytest.raises(ValueError, match="engine"):
         decode_bytes(data, engine="gpu", device="cpu")
     with pytest.raises(ValueError, match="path"):

@@ -166,6 +166,7 @@ def test_import_never_loads_jax():
     code = ("import sys; import jpeg_tpu_torch; "
             "import jpeg_tpu_torch.parallel.pipeline; "
             "import jpeg_tpu_torch.entropy.device_huffman; "
+            "import jpeg_tpu_torch.entropy.device_window; "
             "import jpeg_tpu_torch.entropy.device_kernel; "
             "import jpeg_tpu_torch.ops.idct_only; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "

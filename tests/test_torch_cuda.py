@@ -434,3 +434,39 @@ def test_compat_default_on_card_within_one(cuda, name):
                  decode_bytes(data, path="fast", device=cuda)):
         assert got.shape == want.shape
         assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+K1_ROUTE_NEW = ["synth_3840x2160_s5_q85_rst0_prog.jpg",
+                "synth_3840x2160_s6_q85_rst1_sof9.jpg",
+                "synth_512x384_s7_q85_rst0_sof10.jpg",
+                "synth_512x384_s12_q85_rst0_gray_prog.jpg"]
+COMPAT_ROUTE_NEW = ["synth_512x384_s8_q85_rst0_cmyk.jpg",
+                    "synth_512x384_s9_q85_rst0_cmyk_prog.jpg",
+                    "synth_512x384_s10_q85_rst0_ycck.jpg",
+                    "synth_512x384_s11_q85_rst0_rgb.jpg"]
+
+
+@pytest.mark.parametrize("name", K1_ROUTE_NEW)
+def test_k1_route_of_progressive_and_arithmetic_streams(cuda, name):
+    """Progressive and arithmetic streams through decode_bytes(path='fast')
+    on the card: one K1 launch, pixels equal to the CPU route bit for bit
+    (the same C++ entropy planes into a kernel bit-identical to its twin)."""
+    data = _read(name)
+    before = k1.LAUNCHES.value
+    got = decode_bytes(data, path="fast", device=cuda)
+    assert k1.LAUNCHES.value == before + 1
+    np.testing.assert_array_equal(got, decode_bytes(data, path="fast",
+                                                    device="cpu"))
+
+
+@pytest.mark.parametrize("name", COMPAT_ROUTE_NEW)
+def test_compat_route_colour_models_on_card(cuda, name):
+    """CMYK, YCCK and RGB-direct streams take the compat route on either
+    path, no K1 launch: within +-1 u8 of the CPU."""
+    data = _read(name)
+    before = k1.LAUNCHES.value
+    got = decode_bytes(data, path="fast", device=cuda)
+    assert k1.LAUNCHES.value == before
+    np.testing.assert_array_equal(got, decode_bytes(data, device=cuda))
+    want = decode_bytes(data, device="cpu")
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1

@@ -60,10 +60,18 @@ def test_hybrid_matches_jax_hybrid():
         _within_one(g.rgb, r.rgb)
 
 
+def _twelve_bit() -> bytes:
+    img = synthetic_image(48, 32, seed=3)
+    return encode_rgb(img.astype(np.uint16) * 16, quality=90, precision=12,
+                      engine="python")
+
+
 def test_hybrid_equals_host_route_with_isolation():
-    """Who decoded the entropy must not matter; bad items become records."""
+    """Who decoded the entropy must not matter; bad items become records.
+    A progressive item decodes on the host route (the device thread hands
+    it back), equal to the single-image fast path."""
     prog = encode_rgb_progressive(synthetic_image(96, 64, seed=50), quality=85)
-    items = ([b"not a jpeg", prog]
+    items = ([b"not a jpeg", prog, _twelve_bit()]
              + [open(os.path.join(FIXTURES, f), "rb").read() for f in SMALL]
              + _corpus(9)
              + [_poisoned(_corpus(1)[0])])
@@ -74,14 +82,15 @@ def test_hybrid_equals_host_route_with_isolation():
     assert dec.device_frames > 0
     assert dec.fallback_frames >= 1  # the poisoned item, claimed first
     assert not hyb[0].ok and "JPEGError" in hyb[0].error
-    assert not hyb[1].ok and "NotImplementedError" in hyb[1].error
-    assert "not ported" in hyb[1].error and "ROADMAP.md" in hyb[1].error
+    assert hyb[1].ok
+    assert not hyb[2].ok and "NotImplementedError" in hyb[2].error
+    assert "not ported" in hyb[2].error and "ROADMAP.md" in hyb[2].error
     assert not hyb[-1].ok and "NativeDecodeError" in hyb[-1].error
     for h, g in zip(host, hyb):
         assert h.ok == g.ok and h.error == g.error
         if h.ok:
             np.testing.assert_array_equal(h.rgb, g.rgb)
-    for g, data in zip(hyb[2:-1], items[2:-1]):
+    for g, data in zip([hyb[1], *hyb[3:-1]], [items[1], *items[3:-1]]):
         np.testing.assert_array_equal(
             g.rgb, decode_bytes(data, path="fast", device="cpu"))
 
@@ -179,18 +188,32 @@ def test_decode_file_and_exif_orientation():
     (dict(path="fast", idct_mode="approx"), "idct_mode='approx'"),
 ])
 def test_off_slice_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        decode_bytes(_corpus(1)[0], device="cpu", **kwargs)
+    """The options the port once refused. Fancy upsampling and YCbCr output
+    are ported: within +-1 u8 of the JAX package with the same options
+    (which, as in the JAX package, ignores ``upsample`` on the fast path).
+    ``idct_mode='approx'`` still raises."""
+    data = _corpus(1)[0]
+    if match.startswith("idct_mode"):
+        with pytest.raises(NotImplementedError, match=match):
+            decode_bytes(data, device="cpu", **kwargs)
+        return
+    _within_one(decode_bytes(data, device="cpu", **kwargs),
+                np.asarray(ref_decode_bytes(data, **kwargs)))
 
 
 def test_off_slice_streams_raise():
+    """Progressive and arithmetic streams, once refused, decode within
+    +-1 u8 of the JAX package on both paths; 12-bit streams still raise."""
     img = synthetic_image(48, 32, seed=3)
     streams = {
         "progressive": encode_rgb_progressive(img, quality=85),
         "arithmetic": encode_rgb(img, quality=85, arithmetic=True),
-        "12-bit": encode_rgb(img.astype(np.uint16) * 16, quality=90,
-                             precision=12, engine="python"),
+        "progressive arithmetic": encode_rgb_progressive(img, quality=85,
+                                                         arithmetic=True),
     }
     for what, data in streams.items():
-        with pytest.raises(NotImplementedError, match=what):
-            decode_bytes(data, device="cpu")
+        for path in ("compat", "fast"):
+            _within_one(decode_bytes(data, path=path, device="cpu"),
+                        np.asarray(ref_decode_bytes(data, path=path)))
+    with pytest.raises(NotImplementedError, match="12-bit"):
+        decode_bytes(_twelve_bit(), device="cpu")
