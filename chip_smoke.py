@@ -5,11 +5,13 @@
 
 Builds the C++ entropy runtime and entropy encoder (the port's own copies
 of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``) and
-the five CUDA libraries (K1-K6) from this checkout (all at once), checks each kernel
-against its plain PyTorch version at the shapes its path gives it (K1 and
-K2 on every sampling they take, K3 and K4 on corrupt streams and eight 4K
-frames), times K1 at 8 and 62 4K frames, K3 at 1, 8 and 32, K4 and K2 at
-1 and 8, each beside its bound, then drives four paths:
+the five CUDA libraries (K1-K6, K1a with K1) from this checkout (all at
+once), checks each kernel against its plain PyTorch version at the shapes
+its path gives it (K1, its approx tier K1a and K2 on every sampling they
+take, K3 and K4 on corrupt streams and eight 4K frames), holds K1a within
+the approx gate of K1 (docs/APPROX_QUALITY.md), times K1 and K1a at 8 and
+62 4K frames, K3 at 1, 8 and 32, K4 and K2 at 1 and 8, each beside its
+bound, then drives these paths:
 
 - the hybrid host + device corpus decode of 64 images (62 of them
   3840x2160 frames) through ``BatchedCorpusDecoder(hybrid_device=True)``
@@ -43,6 +45,14 @@ K1; the progressive and SOF9 frames share the baseline frames' K1 bucket)
 and through ``CorpusDecoder`` on both paths, each item held to its route's
 ``decode_bytes`` on the card.
 
+Last, the command line (``cli_path``): ``jpeg_tpu_torch.cli.main`` in
+process on the main path's 64 items written to a temporary directory:
+``corpus --batched --hybrid-device`` with a manifest (K3 and K1), the same
+resumed in runs of ``--limit 24``, ``corpus --idct approx`` (K1a) with the
+approx gate checked in process, ``decode`` (fast exact and approx, compat,
+``--engine oracle``), ``encode`` of a P6, ``info`` (also as ``python -m
+jpeg_tpu_torch``) and one K1 launch inside ``device_trace``.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
 result line, and when no CUDA device is present.
@@ -59,8 +69,8 @@ line describing the kernels, and last a JSON result line.
 
     python3 chip_smoke.py --times [--package DIR]
 
-only builds the kernels and times them at those shapes (K1 at 8 4K frames,
-K2-K6 as above; no checks, no result line), from this checkout's package or
+only builds the kernels and times them at those shapes (K1 and K1a at 8 4K
+frames, K2-K6 as above; no checks, no result line), from this checkout's package or
 from the ``jpeg_tpu_torch`` of another checkout ``DIR``: two versions of a
 kernel are compared by running both on the same card, one after the other,
 in turns.
@@ -114,6 +124,9 @@ FP32_OPS_PER_S = 67e12
 # (+3 when rounding), K2 15 (its chroma box mean not counted).
 OPS_PER_BLOCK = 2 * 64 * 15 + 64
 K1_OPS_PER_BLOCK = 2 * (32 * 8 + 64 * 7) + 64
+# docs/APPROX_QUALITY.md's gate for the approx tier against the exact one.
+APPROX_MAX_DIFF = 2
+APPROX_MIN_PSNR = 50.0
 
 
 class CheckFailed(Exception):
@@ -315,15 +328,19 @@ def run() -> list[dict]:
     #    takes (two small seeded images each, encoded by the port, both
     #    roundings), then each bucket of the main path: the two 512x384
     #    images and the CORPUS_4K frames.
+    #    K1a, the approx tier, the same way against its own twin.
     def k1_check(label, plans, roundings=("truncate",)):
         planes, qtabs, geom, hp = k1_inputs(plans, dev)
         for rounding in roundings:
-            out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding)
-            out_p = k1.fused_plane_decode_plain(planes, qtabs, geom, rounding)
-            err = int((out_k.to(torch.int16) - out_p.to(torch.int16)).abs().max())
-            check(err == 0, f"K1 vs plain, {label} bucket, {rounding}: every "
-                  "pixel identical")
-            del out_k, out_p
+            for name, mode in (("K1", "exact"), ("K1a", "approx")):
+                out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding, mode)
+                out_p = k1.fused_plane_decode_plain(planes, qtabs, geom,
+                                                    rounding, mode)
+                err = int((out_k.to(torch.int16) - out_p.to(torch.int16))
+                          .abs().max())
+                check(err == 0, f"{name} vs plain, {label} bucket, {rounding}: "
+                      "every pixel identical")
+                del out_k, out_p
         return planes, qtabs, geom, hp
 
     def k1_bound(planes, qtabs, geom) -> dict:
@@ -356,6 +373,7 @@ def run() -> list[dict]:
     print(f"K1 {CORPUS_4K}x4K bucket: kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.3f} ms (median, CUDA events); {share(k1_ms, k1_bnd)}",
           flush=True)
+    k1a = k1a_gate_and_times(planes, qtabs, geom, k1_bnd)
     # The same at one device claim's size (contiguous leading slices).
     p8, q8 = [p[:BATCH] for p in planes], qtabs[:BATCH]
     k1_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom), 10, 2,
@@ -364,6 +382,13 @@ def run() -> list[dict]:
     k1_8_bnd = k1_bound(p8, q8, geom)
     print(f"K1 {BATCH}x4K: kernel {k1_8:.4f} ms, plain {k1_8_plain:.3f} ms "
           f"(median, CUDA events); {share(k1_8, k1_8_bnd)}", flush=True)
+    k1a_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom,
+                                                  idct_mode="approx"),
+                    10, 2, queued=True)
+    k1a_8_plain = cuda_ms(lambda: k1.fused_plane_decode_plain(
+        p8, q8, geom, idct_mode="approx"), 3, 1)
+    print(f"K1a {BATCH}x4K: kernel {k1a_8:.4f} ms, plain {k1a_8_plain:.3f} ms "
+          f"(median, CUDA events); {share(k1a_8, k1_8_bnd)}", flush=True)
     del planes, qtabs, p8, q8
     plans4k, host_planes = plans4k[:BATCH], host_planes[:BATCH]
 
@@ -519,6 +544,10 @@ def run() -> list[dict]:
     # 12. K5 and K6 at the roofline instrument's shape.
     k5, k6 = idct_roofline(dev)
 
+    # 13. The command line: corpus (exact, resumed, approx), decode, encode,
+    #     info, python -m, and a device trace.
+    cli = cli_path(dev)
+
     print(card, flush=True)  # nvidia-smi name, power limit
     # "launches" counts the main path's run (the hybrid corpus decode for
     # K1 and K3); the round trip's own counts are kept beside them.
@@ -528,9 +557,20 @@ def run() -> list[dict]:
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:215",
          "launches": k1_launches, "launches_round_trip": k1_rt_launches,
          "launches_mixed_corpus": k1_mixed_launches,
+         "launches_cli_corpus": cli["k1"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
          "ms_8_frames": k1_8, "bound_ms_8_frames": k1_8_bnd["bound_ms"]},
+        {"name": "K1a fused_plane approx", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
+         "replaces": "jpeg_tpu/ops/pallas_kernels.py:301",
+         "launches": cli["k1a"], "max_abs_err": 0,
+         "ms": k1a["ms"], "plain_ms": k1a["plain_ms"], **k1_bnd,
+         "library_ms": None, "frames": CORPUS_4K, "ms_8_frames": k1a_8,
+         "plain_ms_8_frames": k1a_8_plain,
+         "bound_ms_8_frames": k1_8_bnd["bound_ms"],
+         "vs_k1_max_abs_diff": k1a["max_diff"],
+         "vs_k1_min_psnr_db": k1a["min_psnr"]},
         {"name": "K2 fused_encode", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_encode.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:410",
@@ -540,6 +580,7 @@ def run() -> list[dict]:
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
          "launches": k3_launches, "launches_round_trip": k3_rt_launches,
          "launches_mixed_corpus": k3_mixed_launches,
+         "launches_cli_corpus": cli["k3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          **k3_bnd, "library_ms": None, "frames": BATCH,
          "ms_by_frames": {str(f): t[0] for f, t in k3_time.items()},
@@ -559,6 +600,231 @@ def run() -> list[dict]:
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:327", **k6},
     ]
+
+
+def k1a_gate_and_times(planes, qtabs, geom, bnd) -> dict:
+    """K1a on the main path's 4K bucket: within docs/APPROX_QUALITY.md's
+    gate of exact K1 on every frame (max |diff| <= 2 u8, >= 50 dB over the
+    cropped frame), then timed queued beside its plain twin. Returns ms,
+    plain_ms, the largest difference and the smallest PSNR."""
+    import torch
+
+    from jpeg_tpu_torch.ops import fused_plane as k1
+
+    exact = k1.fused_plane_decode(planes, qtabs, geom)
+    approx = k1.fused_plane_decode(planes, qtabs, geom, idct_mode="approx")
+    worst, min_psnr = 0, float("inf")
+    for b in range(exact.shape[0]):
+        e = exact[b, :, : geom.height, : geom.width].float()
+        d = approx[b, :, : geom.height, : geom.width].float() - e
+        worst = max(worst, int(d.abs().max()))
+        mse = float((d * d).mean())
+        min_psnr = min(min_psnr, float("inf") if mse == 0
+                       else 10.0 * np.log10(255.0**2 / mse))
+    differ = int((approx != exact).sum())
+    del exact, approx
+    check(worst <= APPROX_MAX_DIFF and min_psnr >= APPROX_MIN_PSNR,
+          f"K1a vs K1 on {planes[0].shape[0]} 4K frames: max |diff| {worst} "
+          f"<= {APPROX_MAX_DIFF} u8, smallest PSNR {min_psnr:.2f} dB >= "
+          f"{APPROX_MIN_PSNR} ({differ} values differ)")
+    ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom,
+                                               idct_mode="approx"),
+                 10, 2, queued=True)
+    plain_ms = cuda_ms(lambda: k1.fused_plane_decode_plain(
+        planes, qtabs, geom, idct_mode="approx"), 3, 1)
+    print(f"K1a {planes[0].shape[0]}x4K bucket: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms (median, CUDA events); {share(ms, bnd)}",
+          flush=True)
+    torch.cuda.synchronize()
+    return {"ms": ms, "plain_ms": plain_ms, "max_diff": worst,
+            "min_psnr": min_psnr}
+
+
+def cli_path(dev) -> dict:
+    """The command line, in process (``jpeg_tpu_torch.cli.main``, so the
+    launch counters can be read) on the main path's 64 items written to a
+    temporary directory:
+
+    - ``corpus --batched --hybrid-device --manifest``: every item decoded,
+      through K1 and K3, with the ``stages`` report;
+    - a fresh manifest run with ``--limit 24``, again, then without a limit:
+      the reports add up to every item, each in the manifest once;
+    - ``corpus --idct approx``: every item through K1a; then in process,
+      ``BatchedCorpusDecoder`` exact and approx on the same files, every
+      frame within the approx gate;
+    - ``decode`` of a 4K frame to P6 on the fast path (exact and approx) and
+      the compat default, each equal to ``decode_bytes``; ``--engine
+      oracle`` on a 512x384 image equal to the native engine;
+    - ``encode`` of a P6 written by ``write_ppm`` equal to ``encode_rgb``;
+    - ``info`` of a 4K frame, in process and as ``python -m
+      jpeg_tpu_torch`` in a subprocess;
+    - one K1 launch inside ``device_trace``: its trace names K1's kernel.
+
+    Returns the exact corpus' K1 and K3 launches and the approx corpus' K1a
+    launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from jpeg_tpu_torch import cli, decode_bytes, encode_rgb
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.io.ppm import read_ppm, write_ppm
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
+    from jpeg_tpu_torch.utils.profiling import device_trace
+
+    def run_cli(argv, what):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        out = buf.getvalue().strip().splitlines()
+        check(rc == 0, f"cli {what}: exit code 0")
+        return out[-1] if out else ""
+
+    def reset():
+        for counter in (k1.LAUNCHES, k1.LAUNCHES_APPROX, k3.LAUNCHES):
+            counter.reset()
+        torch.cuda.synchronize()
+
+    def counts():
+        return (k1.LAUNCHES.value, k1.LAUNCHES_APPROX.value, k3.LAUNCHES.value)
+
+    names = [SMALL_NO_RST, SMALL_RST[1]] + [FRAMES_4K[i % 2]
+                                            for i in range(CORPUS_4K)]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        paths = []
+        for i, name in enumerate(names):
+            paths.append(os.path.join(corpus, f"item_{i:03d}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(read(name))
+        n = len(paths)
+        base = ["corpus", corpus, "--batched", "--hybrid-device"]
+
+        reset()
+        report = json.loads(run_cli(
+            base + ["--manifest", os.path.join(tmp, "m1")], "corpus"))
+        k1_n, k1a_n, k3_n = counts()
+        launches.update(k1=k1_n, k3=k3_n)
+        check(report["decoded"] == n and report["failed"] == 0
+              and set(report["stages"]) == {"decode"},
+              f"cli corpus --batched --hybrid-device: {report['decoded']} of "
+              f"{n} decoded, {report['failed']} failed; stages "
+              f"{json.dumps(report['stages'])}")
+        check(k1_n > 0 and k3_n > 0 and k1a_n == 0,
+              f"cli corpus went through the kernels: K1 launches {k1_n}, K3 "
+              f"launches {k3_n}, K1a {k1a_n}")
+        print(f"cli corpus: {n} items ({CORPUS_4K} at 3840x2160) in "
+              f"{report['wall_s']} s = {report['frames_per_s']} frames/s "
+              "(its own report, host clock)", flush=True)
+
+        m2 = os.path.join(tmp, "m2")
+        parts = [json.loads(run_cli(base + ["--manifest", m2] + extra,
+                                    f"corpus resume {k}"))["decoded"]
+                 for k, extra in enumerate((["--limit", "24"], ["--limit", "24"],
+                                            []))]
+        with open(f"{m2}.0.jsonl") as f:
+            done = [json.loads(line)["item"] for line in f]
+        check(parts == [24, 24, n - 48] and sorted(done) == sorted(paths),
+              f"cli corpus resumed with --limit 24: decoded {parts}, the "
+              f"manifest holds each of the {n} items once ({len(done)} lines)")
+
+        reset()
+        report = json.loads(run_cli(base + ["--idct", "approx"],
+                                    "corpus --idct approx"))
+        k1_n, k1a_n, k3_n = counts()
+        launches["k1a"] = k1a_n
+        check(report["decoded"] == n and report["failed"] == 0
+              and k1a_n > 0 and k1_n == 0 and k3_n > 0,
+              f"cli corpus --idct approx: {report['decoded']} of {n} decoded "
+              f"through K1a ({k1a_n} launches, K1 {k1_n}, K3 {k3_n})")
+        print(f"cli corpus --idct approx: {n} items in {report['wall_s']} s = "
+              f"{report['frames_per_s']} frames/s (its own report, host clock)",
+              flush=True)
+        results = {}
+        for mode in ("exact", "approx"):
+            dec = BatchedCorpusDecoder(hybrid_device=True, idct_mode=mode,
+                                       device=dev)
+            results[mode] = dec.decode_all(paths)
+            dec.close()
+        worst, min_psnr = 0, float("inf")
+        for e, a in zip(results["exact"], results["approx"]):
+            worst = max(worst, int(np.abs(a.rgb.astype(np.int16)
+                                          - e.rgb.astype(np.int16)).max()))
+            min_psnr = min(min_psnr, psnr(a.rgb, e.rgb))
+        check(all(r.ok for rs in results.values() for r in rs)
+              and worst <= APPROX_MAX_DIFF and min_psnr >= APPROX_MIN_PSNR,
+              f"BatchedCorpusDecoder(idct_mode='approx') on the cli corpus: "
+              f"every frame within {APPROX_MAX_DIFF} u8 (max {worst}) and "
+              f"{APPROX_MIN_PSNR} dB (min {min_psnr:.2f}) of the exact run")
+        approx_4k = results["approx"][2].rgb
+        del results
+
+        frame = paths[2]
+        data = read(names[2])
+        out = os.path.join(tmp, "frame.ppm")
+        for opts, want, label in (
+                (["--path", "fast"], decode_bytes(data, path="fast", device=dev),
+                 "decode_bytes(path='fast')"),
+                (["--path", "fast", "--idct", "approx"], approx_4k,
+                 "the in-process approx decode"),
+                ([], decode_bytes(data, device=dev), "decode_bytes()")):
+            run_cli(["decode", frame, out, *opts], f"decode {opts}")
+            got = read_ppm(out)
+            check(got.shape == (2160, 3840, 3) and np.array_equal(got, want),
+                  f"cli decode {' '.join(opts) or '(compat)'} of a 4K frame to "
+                  f"P6 == {label}")
+        small = paths[0]
+        run_cli(["decode", small, out, "--engine", "oracle"], "decode oracle")
+        check(np.array_equal(read_ppm(out), decode_bytes(
+            read(names[0]), engine="native", device=dev)),
+              f"cli decode --engine oracle of {names[0]} == the native engine")
+
+        src = os.path.join(tmp, "src.ppm")
+        img = synthetic_image(3840, 2160, seed=0)
+        write_ppm(src, img)
+        jpg = os.path.join(tmp, "enc.jpg")
+        run_cli(["encode", src, jpg, "--restart-interval", str(RESTART_4K)],
+                "encode")
+        with open(jpg, "rb") as f:
+            check(f.read() == encode_rgb(img, restart_interval_mcus=RESTART_4K),
+                  "cli encode of a 4K P6 (write_ppm) == encode_rgb, byte for "
+                  "byte")
+
+        info = json.loads(run_cli(["info", frame], "info"))
+        check(info["width"] == 3840 and info["height"] == 2160
+              and info["entropy_segments"] == 135,
+              f"cli info of a 4K frame: {info['width']}x{info['height']}, "
+              f"{info['entropy_segments']} entropy segments")
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "jpeg_tpu_torch", "info",
+                               frame], cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=300)
+        check(proc.returncode == 0
+              and json.loads(proc.stdout.strip().splitlines()[-1]) == info,
+              f"python -m jpeg_tpu_torch info: the same JSON "
+              f"({time.perf_counter() - t0:.1f} s, a fresh interpreter)")
+
+        planes, qtabs, geom, _ = k1_inputs([parse_jpeg(data)], dev)
+        trace_dir = os.path.join(tmp, "trace")
+        reset()
+        with device_trace(trace_dir):
+            k1.fused_plane_decode(planes, qtabs, geom)
+            torch.cuda.synchronize()
+        traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                  if f.endswith(".pt.trace.json")]
+        text = "".join(open(t).read() for t in traces)
+        check(k1.LAUNCHES.value == 1 and len(traces) == 1
+              and "fused_plane_kernel" in text,
+              f"device_trace: one K1 launch, {len(traces)} trace file naming "
+              "fused_plane_kernel")
+    return launches
 
 
 def check_k4_small(dev) -> int:
@@ -1078,8 +1344,8 @@ def check_k2(frames, dev) -> dict:
 
 def kernel_times(package_dir: str) -> None:
     """``--times``: every kernel of the ``jpeg_tpu_torch`` under
-    ``package_dir``, built and timed alone at the smoke's shapes (K1 at 8
-    4K frames; K2, K4 at 1 and 8; K3 at 1, 8 and 32; K5 and K6 at
+    ``package_dir``, built and timed alone at the smoke's shapes (K1, and
+    K1a where the package has it, at 8 4K frames; K2, K4 at 1 and 8; K3 at 1, 8 and 32; K5 and K6 at
     [4096, 3840], also one launch at a time after an L2 flush), launches
     queued in a row behind a busy card so the wrappers' host time stays out;
     then the two passes of K3 and K4 apart. Prints one line per time."""
@@ -1118,6 +1384,11 @@ def kernel_times(package_dir: str) -> None:
     ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2,
                  inner=10, queued=True)
     print(f"times K1 {BATCH}x4K: {ms:.4f} ms", flush=True)
+    if hasattr(k1, "LAUNCHES_APPROX"):  # a package with K1a
+        ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom,
+                                                   idct_mode="approx"),
+                     10, 2, inner=10, queued=True)
+        print(f"times K1a {BATCH}x4K: {ms:.4f} ms", flush=True)
     del planes, qtabs
     frames = [synthetic_image(3840, 2160, seed=i % 2) for i in range(BATCH)]
     geom, rgb, iq = k2_inputs(frames, dev, subsampling=(2, 2))

@@ -45,7 +45,11 @@ __version__ = "0.1.0"
 
 from jpeg_tpu_torch.io.container import DecodePlan, JPEGError, parse_jpeg  # noqa: F401
 from jpeg_tpu_torch.models.decoder import decode_bytes, decode_file  # noqa: F401
-from jpeg_tpu_torch.models.encoder import encode_rgb, encode_rgb_device  # noqa: F401
+from jpeg_tpu_torch.models.encoder import (  # noqa: F401
+    encode_cmyk,
+    encode_rgb,
+    encode_rgb_device,
+)
 from jpeg_tpu_torch.parallel.batch import decode_batch  # noqa: F401
 from jpeg_tpu_torch.parallel.pipeline import (  # noqa: F401
     BatchedCorpusDecoder,

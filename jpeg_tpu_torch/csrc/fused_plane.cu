@@ -38,6 +38,21 @@
 // instructions a block and ~30 a pixel, and the loads, the shared-memory
 // traffic and the stores, the IDCT's arithmetic and the colour stage's each
 // take a comparable share of the time.
+//
+// K1a, the approx tier (template flag kApprox): the same kernel with the
+// TPU kernel's idct_mode="approx" arithmetic. There the two IDCT products
+// run at Precision.DEFAULT, one bf16 pass (pallas_kernels.py:301,
+// sandwich_idct_split :160-185): the dequantised block and the basis are
+// rounded to bf16, the vertical pass sums in fp32, its result is rounded to
+// bf16, and the horizontal pass sums in fp32 (idct8x8.cuh,
+// idct8_columns_bf16 / idct8_row_bf16; the launcher's caller passes the
+// bf16-rounded basis). The plain twin rounds at the same places and sums in
+// the same order, so the two are bit-equal. Products of bf16 values are
+// exact, so K1a's IDCT takes one fma a term where K1 takes a product and
+// two sums a mirrored pair: fewer instructions, plus two roundings per
+// coefficient. Same byte bound as K1. The tier exists to be cheaper on a
+// matrix unit: mma.sync / wgmma over blocks packed into tiles is the next
+// kernel's design.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -122,6 +137,7 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
   return a | (b << 8) | (c << 16) | (d << 24);
 }
 
+template <bool kApprox>
 __global__ void __launch_bounds__(kThreads)
 fused_plane_kernel(const Geometry g,
                    const float* __restrict__ qtab,  // [B, n_comp, 64]
@@ -166,14 +182,21 @@ fused_plane_kernel(const Geometry g,
       }
     }
     // Both passes in registers (idct8x8.cuh), a row at a time into the
-    // cell's pixels.
-    idct8_columns(f, bas.a);
+    // cell's pixels; K1a rounds the vertical pass's operands and result to
+    // bf16.
+    if constexpr (kApprox)
+      idct8_columns_bf16(f, bas.a);
+    else
+      idct8_columns(f, bas.a);
     const int cols = c.nbx * 8;
     float* dst = tile_px + c.tile + by * 8 * cols;
 #pragma unroll
     for (int y = 0; y < 8; ++y) {
       float s[8];
-      idct8_row<false>(f[y], bas.a, s);
+      if constexpr (kApprox)
+        idct8_row_bf16(f[y], bas.a, s);
+      else
+        idct8_row<false>(f[y], bas.a, s);
       float* row = dst + y * cols;
       *reinterpret_cast<float4*>(row + chunk_at(2 * bx)) =
           make_float4(s[0], s[1], s[2], s[3]);
@@ -283,22 +306,37 @@ __global__ void divide_green_check(uint32_t lo_bits, uint32_t hi_bits,
   }
 }
 
+template <bool kApprox>
+cudaError_t launch_plane(const Geometry& g, const float* qtab, const Basis& bas,
+                         uint8_t* out, int64_t h_pad, int64_t w_pad,
+                         int round_mode, size_t smem, dim3 grid,
+                         cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_plane_kernel<kApprox>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  fused_plane_kernel<kApprox><<<grid, kThreads, smem, stream>>>(
+      g, qtab, bas, out, h_pad, w_pad, round_mode);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch K1 on `stream`. Device pointers: planes[c] ([batch, rows[c],
-// stride[c]] int16, contiguous, 16-byte aligned), qtab ([batch, n_comp, 64]
-// f32), out ([batch, 3, h_pad, w_pad] u8, 16-byte aligned). Host arrays:
-// planes, rows, stride, h, v (n_comp entries each) and basis (64 f32,
-// A[u][x]). Returns cudaGetLastError() after the launch (0 = launched).
+// Launch K1 (approx = 0) or K1a (approx = 1) on `stream`. Device
+// pointers: planes[c] ([batch, rows[c], stride[c]] int16, contiguous,
+// 16-byte aligned), qtab ([batch, n_comp, 64] f32), out ([batch, 3, h_pad,
+// w_pad] u8, 16-byte aligned). Host arrays: planes, rows, stride, h, v
+// (n_comp entries each) and basis (64 f32, A[u][x]; bf16-rounded values for
+// K1a). Returns cudaGetLastError() after the launch (0 = launched).
 int jt_fused_plane_decode(const void* const* planes, const int64_t* rows,
                           const int64_t* stride, const int32_t* h,
                           const int32_t* v, int32_t n_comp, int32_t h_max,
                           int32_t v_max, int32_t mcu_rows, const void* qtab,
                           const float* basis, void* out, int64_t batch,
                           int64_t h_pad, int64_t w_pad, int32_t round_mode,
-                          void* stream) {
+                          int32_t approx, void* stream) {
   if (n_comp < 1 || n_comp > kMaxComp || w_pad % kTileW != 0 || batch < 1 ||
       batch > 65535 || mcu_rows < 1 || mcu_rows > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -335,17 +373,16 @@ int jt_fused_plane_decode(const void* const* planes, const int64_t* rows,
   // Up to 3 x 32 x 256 floats (96 KB) when every component is 4x4: opt in
   // past 48 KB.
   const size_t smem = sizeof(float) * floats;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_plane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(static_cast<unsigned>(w_pad / kTileW), static_cast<unsigned>(mcu_rows),
             static_cast<unsigned>(batch));
-  fused_plane_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      g, static_cast<const float*>(qtab), bas, static_cast<uint8_t*>(out),
-      h_pad, w_pad, round_mode);
-  return static_cast<int>(cudaGetLastError());
+  const float* q = static_cast<const float*>(qtab);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      approx ? launch_plane<true>(g, q, bas, o, h_pad, w_pad, round_mode, smem,
+                                  grid, st)
+             : launch_plane<false>(g, q, bas, o, h_pad, w_pad, round_mode,
+                                   smem, grid, st));
 }
 
 // Run divide_green_check over positive float bit patterns lo_bits ..

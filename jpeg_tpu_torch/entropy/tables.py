@@ -5,7 +5,8 @@ Parity: reference ``src/jpeg/huffman.rs:13-98`` (``HuffmanCode``,
 Fig. C.2). The reference stores a sorted code list and does an O(table) linear
 scan per decoded symbol (``src/jpeg/huffman.rs:211-227``). This design
 instead builds a flat 2^16-entry lookup table: peek 16 bits -> (value, code
-length) in O(1). The same structure feeds the C++ runtime and, cut to an
+length) in O(1). The same structure feeds the NumPy oracle decoders
+(``entropy/oracle.py``, ``progressive.py``), the C++ runtime and, cut to an
 11-bit table plus a canonical walk, the CUDA lane decoder.
 
 Copy of ``jpeg_tpu/entropy/tables.py``, held to it by the port's tests.
@@ -107,6 +108,14 @@ class HuffmanTable:
             lut_length=lut_length,
         )
 
+    def decode16(self, peek: int) -> tuple[int, int]:
+        """Decode the symbol in the top bits of a 16-bit peek. -> (value, len).
+
+        len == 0 means invalid prefix (reference panics in that case,
+        ``src/jpeg/huffman.rs:151-156``).
+        """
+        return int(self.lut_value[peek]), int(self.lut_length[peek])
+
 
 def empty_table() -> HuffmanTable:
     """All-invalid table used to fill unused DC/AC slots (ids 0..3)."""
@@ -118,3 +127,17 @@ def empty_table() -> HuffmanTable:
         lut_value=np.zeros(LUT_SIZE, dtype=np.uint8),
         lut_length=np.zeros(LUT_SIZE, dtype=np.uint8),
     )
+
+
+# Table F.2 "receive and extend": raw -> signed coefficient.
+def value_correction(val: int, nbits: int) -> int:
+    """Sign-extend an ``nbits``-bit magnitude per JPEG Table F.2.
+
+    Parity: reference ``src/jpeg/huffman.rs:256-268``.
+    """
+    if nbits == 0:
+        return 0
+    base = 1 << (nbits - 1)
+    if val < base:
+        return val - 2 * base + 1
+    return val

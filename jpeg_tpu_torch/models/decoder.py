@@ -16,11 +16,19 @@ RGB-direct, CMYK or YCCK, with its defaults:
   host (C++ runtime, every entropy coding) or on the device (K3 +
   :func:`coefficient_planes_from_blocks`), then K1 (``ops/fused_plane.py``)
   for dequant, IDCT, upsample and colour. It is within +-1 u8 of the compat
-  path. Other colour models take the compat path, as in the JAX package.
+  path. ``idct_mode="approx"`` runs K1a instead, K1 with the IDCT's operands
+  rounded to bf16 as the TPU's DEFAULT precision rounds them (within 2 u8
+  and 50 dB of exact, ``docs/APPROX_QUALITY.md``). Other colour models take
+  the compat path, as in the JAX package.
 
-Lossless and 12-bit streams, ``engine="oracle"`` and ``idct_mode="approx"``
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item; nothing falls
-back silently.
+The host entropy stage runs the C++ runtime (``engine="auto"`` or
+``"native"``) or the NumPy reference decoders (``engine="oracle"``,
+``entropy/oracle.py``, ``progressive.py``, ``arith.py``). ``"auto"`` does not
+fall back to the oracle when the runtime fails to build, as the JAX package
+does: the build error raises.
+
+Lossless and 12-bit streams raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from jpeg_tpu_torch.entropy import arith, oracle, progressive
 from jpeg_tpu_torch.io.container import DecodePlan, parse_jpeg
 from jpeg_tpu_torch.ops.color import (
     cmyk_to_rgb,
@@ -95,6 +104,16 @@ class PipelineGeometry:
             offset += h * v
         return out
 
+    def component_gather_indices(self) -> list[np.ndarray]:
+        """Flat stream-row indices per component (used by host-side code and
+        tests; the pipeline uses :meth:`component_slot_ranges`)."""
+        bpm = self.blocks_per_mcu
+        base = np.arange(self.n_mcus, dtype=np.int32)[:, None] * bpm
+        return [
+            (base + np.arange(off, off + k, dtype=np.int32)[None, :]).reshape(-1)
+            for off, k in self.component_slot_ranges()
+        ]
+
 
 def not_ported(what: str, item: int | str):
     """The error for a route this package does not run yet."""
@@ -156,23 +175,40 @@ def decode_coefficients_host(plan: DecodePlan, engine: str = "auto") -> np.ndarr
     blocks, DC prediction applied, MCU stream order.
 
     ``engine``: ``"auto"`` and ``"native"`` run the C++ runtime (a failed
-    build raises: there is no fallback): progressive plans (SOF2, SOF10)
-    through ``native_decode_progressive``, sequential arithmetic (SOF9)
-    through ``native_decode_arith_coefficients``, baseline Huffman through
-    ``native_decode_coefficients``. ``"oracle"``, the JAX package's NumPy
-    decoders, is not ported. A baseline Huffman plan's array is the
-    runtime's per-thread scratch buffer: consume or copy it before this
-    thread decodes another image of the same block count."""
+    build raises: ``"auto"`` does not fall back to the oracle as in the JAX
+    package): progressive plans (SOF2, SOF10) through
+    ``native_decode_progressive``, sequential arithmetic (SOF9) through
+    ``native_decode_arith_coefficients``, baseline Huffman through
+    ``native_decode_coefficients``. ``"oracle"`` runs the NumPy reference
+    decoders, routed as in the JAX package: baseline to
+    ``decode_coefficients``, progressive to
+    ``decode_progressive_coefficients``, SOF9 to
+    ``decode_coefficients_arith``, SOF10 to
+    ``decode_progressive_coefficients_arith``. A baseline Huffman plan's
+    array from the runtime is its per-thread scratch buffer: consume or copy
+    it before this thread decodes another image of the same block count."""
     check_ported(plan)
-    if engine == "oracle":
-        raise not_ported("engine='oracle'", 1)
-    if engine not in ("auto", "native"):
+    if engine not in ("auto", "native", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine == "oracle":
+        return decode_coefficients_oracle(plan)
     if plan.progressive:
         return native_decode_progressive(plan)
     if plan.arith_code:
         return native_decode_arith_coefficients(plan)
     return native_decode_coefficients(plan)
+
+
+def decode_coefficients_oracle(plan: DecodePlan) -> np.ndarray:
+    """The NumPy reference decoders -> ``[total_blocks, 64]`` int32 zigzag
+    blocks, as :func:`decode_coefficients_host` returns them."""
+    if plan.arith_code:
+        if plan.progressive:
+            return arith.decode_progressive_coefficients_arith(plan)
+        return arith.decode_coefficients_arith(plan)
+    if plan.progressive:
+        return progressive.decode_progressive_coefficients(plan)
+    return oracle.decode_coefficients(plan)
 
 
 def progressive_planes(plan: DecodePlan) -> list[np.ndarray]:
@@ -267,16 +303,17 @@ def decode_plan(plan: DecodePlan, rounding: str = "truncate",
 def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
                      device="cuda", idct_mode: str = "exact") -> np.ndarray:
     """C++ plane-layout entropy (baseline, progressive or SOF9) + K1 on
-    ``device`` -> RGB [H, W, 3] u8. Plans K1 does not take
-    (:func:`fast_path_takes`) go to :func:`decode_plan` on ``device``."""
-    from jpeg_tpu_torch.ops.fused_plane import decode_planes_fused
+    ``device`` -> RGB [H, W, 3] u8; K1a with ``idct_mode="approx"``. Plans
+    K1 does not take (:func:`fast_path_takes`) go to :func:`decode_plan` on
+    ``device``, exact whatever ``idct_mode``, as in the JAX package."""
+    from jpeg_tpu_torch.ops.fused_plane import check_idct_mode, decode_planes_fused
 
-    if idct_mode != "exact":
-        raise not_ported(f"idct_mode={idct_mode!r}", 1)
+    check_idct_mode(idct_mode)
     check_ported(plan)
     if not fast_path_takes(plan):
         return decode_plan(plan, rounding, device=device)
-    return decode_planes_fused(host_planes(plan), plan, rounding, device)
+    return decode_planes_fused(host_planes(plan), plan, rounding, device,
+                               idct_mode)
 
 
 def decode_bytes(data: bytes, rounding: str = "truncate",
@@ -288,9 +325,10 @@ def decode_bytes(data: bytes, rounding: str = "truncate",
     ``path="compat"`` (default, as in the JAX package) runs
     :func:`decode_plan` with ``engine``, ``upsample`` and ``color_space``;
     ``path="fast"`` with RGB output runs K1 (:func:`decode_plan_fast`,
-    which alone reads ``idct_mode``) for gray and YCbCr streams, within
-    +-1 u8 of compat, and ignores ``upsample`` there as the JAX package
-    does. Every other stream or colour space takes the compat path."""
+    which alone reads ``idct_mode``: K1a for ``"approx"``) for gray and
+    YCbCr streams, within +-1 u8 of compat, and ignores ``upsample`` and
+    ``engine`` there as the JAX package does. Every other stream or colour
+    space takes the compat path."""
     if path not in ("compat", "fast"):
         raise ValueError(f"unknown path {path!r}")
     plan = parse_jpeg(data)

@@ -14,9 +14,10 @@ streams. Two routes, as in the JAX package:
   (quantisation ties); they decode within the repo's 45 dB bar.
 
 A failed build or load of the C++ encoder raises; nothing drops to the
-Python packer behind the caller's back. Routes of the JAX encoder that lead
-off this slice (arithmetic coding, 12-bit, progressive, CMYK) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Python packer behind the caller's back. :func:`encode_cmyk` writes Adobe
+CMYK and YCCK streams as the JAX package does. Routes of the JAX encoder
+that lead off this slice (arithmetic coding, 12-bit, progressive) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item (3c).
 """
 
 from __future__ import annotations
@@ -388,15 +389,28 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
 
 
 def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
-               restart_interval_mcus, comment: str | None = None) -> bytes:
-    """Assemble SOI..EOI around a baseline Huffman scan: a JFIF stream with
-    component ids 1..n and the luma/chroma table split (the JAX package's
-    ``_container`` with its defaults; its Adobe, arithmetic and 12-bit
-    options belong to routes not ported yet)."""
+               restart_interval_mcus, comment: str | None = None,
+               component_ids=None, quant_ids=None, table_ids=None,
+               adobe_transform: int | None = None) -> bytes:
+    """Assemble SOI..EOI around a baseline Huffman scan.
+
+    Defaults emit a JFIF stream with ids 1..n and the luma/chroma table
+    split; the optional keyword args support Adobe streams (APP14 instead
+    of JFIF APP0 — JFIF only allows 1 or 3 components) with custom
+    component ids and per-component table assignments (the JAX package's
+    ``_container``; its arithmetic and 12-bit options belong to routes not
+    ported yet)."""
     ncomp = len(samplings)
+    component_ids = component_ids or [ci + 1 for ci in range(ncomp)]
+    quant_ids = quant_ids or [min(ci, 1) for ci in range(ncomp)]
+    table_ids = table_ids or [min(ci, 1) for ci in range(ncomp)]
     out = bytearray(b"\xff\xd8")  # SOI
-    app0 = b"JFIF\x00\x01\x01\x00" + (1).to_bytes(2, "big") * 2 + b"\x00\x00"
-    out += b"\xff\xe0" + (len(app0) + 2).to_bytes(2, "big") + app0
+    if adobe_transform is None:
+        app0 = b"JFIF\x00\x01\x01\x00" + (1).to_bytes(2, "big") * 2 + b"\x00\x00"
+        out += b"\xff\xe0" + (len(app0) + 2).to_bytes(2, "big") + app0
+    else:
+        app14 = b"Adobe" + bytes([0, 100, 0, 0, 0, 0, adobe_transform])
+        out += b"\xff\xee" + (len(app14) + 2).to_bytes(2, "big") + app14
     if comment:
         body = comment.encode("utf-8")
         out += b"\xff\xfe" + (len(body) + 2).to_bytes(2, "big") + body
@@ -406,7 +420,7 @@ def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
     sof = bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(
         2, "big") + bytes([ncomp])
     for ci, (h, v) in enumerate(samplings):
-        sof += bytes([ci + 1, (h << 4) | v, min(ci, 1)])
+        sof += bytes([component_ids[ci], (h << 4) | v, quant_ids[ci]])
     out += b"\xff\xc0" + (len(sof) + 2).to_bytes(2, "big") + sof
     for cls, tables in ((0, dc_t), (1, ac_t)):
         for tid, t in enumerate(tables):
@@ -416,8 +430,8 @@ def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
         out += b"\xff\xdd\x00\x04" + restart_interval_mcus.to_bytes(2, "big")
     sos = bytes([ncomp])
     for ci in range(ncomp):
-        ti = min(ci, 1)
-        sos += bytes([ci + 1, (ti << 4) | ti])
+        ti = table_ids[ci]
+        sos += bytes([component_ids[ci], (ti << 4) | ti])
     sos += bytes([0, 63, 0])
     out += b"\xff\xda" + (len(sos) + 2).to_bytes(2, "big") + sos
     out += scan
@@ -447,9 +461,9 @@ def encode_rgb(rgb: np.ndarray, quality: int = 85,
     if precision not in (8, 12):
         raise ValueError(f"unsupported precision {precision}")
     if arithmetic:
-        raise not_ported("arithmetic-coded (SOF9) encode", 3)
+        raise not_ported("arithmetic-coded (SOF9) encode", "3c")
     if precision == 12:
-        raise not_ported("12-bit encode", 3)
+        raise not_ported("12-bit encode", "3c")
     if engine not in ("native", "python"):
         raise ValueError(f"unknown engine {engine!r}")
     (comp_blocks_zz, samplings, quant_zz, height, width,
@@ -470,9 +484,68 @@ def encode_rgb(rgb: np.ndarray, quality: int = 85,
 
 def encode_rgb_progressive(*args, **kwargs) -> bytes:
     """Progressive (SOF2/SOF10) encode: not ported yet."""
-    raise not_ported("progressive encode (encode_rgb_progressive)", 3)
+    raise not_ported("progressive encode (encode_rgb_progressive)", "3c")
 
 
-def encode_cmyk(*args, **kwargs) -> bytes:
-    """CMYK/YCCK Adobe encode: not ported yet."""
-    raise not_ported("CMYK/YCCK encode (encode_cmyk)", 1)
+def encode_cmyk(cmyk: np.ndarray, quality: int = 85,
+                engine: str = "native",
+                restart_interval_mcus: int = 0,
+                ycck: bool = False,
+                comment: str | None = None,
+                arithmetic: bool = False) -> bytes:
+    """Encode [H, W, 4] u8 CMYK (Pillow convention) to an Adobe JPEG,
+    byte-identical to the JAX package's ``encode_cmyk``.
+
+    Emits an APP14 transform-0 stream with C,M,Y,K component ids, 4:4:4
+    sampling, and the luma quant/Huffman tables for every component
+    (libjpeg's CMYK defaults). Bytes are stored Adobe-inverted (255 - ink),
+    matching what Pillow writes and reads back via its ``CMYK;I`` rawmode.
+    ``ycck=True`` emits APP14 transform 2 with the ink channels
+    YCbCr-converted first (libjpeg jccolor rgb_ycck_convert). ``engine``:
+    "native" (the C++ packer) or "python". ``arithmetic=True`` (SOF9) is not
+    ported yet.
+    """
+    if arithmetic:
+        raise not_ported("arithmetic-coded CMYK/YCCK encode "
+                         "(encode_cmyk(arithmetic=True))", "3c")
+    if engine not in ("native", "python"):
+        raise ValueError(f"unknown engine {engine!r}")
+    cmyk = np.asarray(cmyk)
+    if cmyk.ndim != 3 or cmyk.shape[2] != 4 or 0 in cmyk.shape[:2]:
+        raise ValueError(f"expected [H, W, 4] CMYK with H, W >= 1, "
+                         f"got shape {cmyk.shape}")
+    height, width = cmyk.shape[:2]
+    samplings = [(1, 1)] * 4
+    mcus_x, mcus_y = -(-width // 8), -(-height // 8)
+    q_luma = annex_k.scaled_quant_table(annex_k.QUANT_LUMA, quality)
+    fwd = forward_dct_matrix()
+    stored = 255.0 - cmyk.astype(np.float32)  # Adobe inversion
+    if ycck:
+        # libjpeg cmyk_ycck_convert re-inverts the ink to RGB-like values
+        # (r = 255 - stored = the Pillow-convention ink) before the YCbCr
+        # forward; K stays stored.
+        r, g, b = (cmyk[..., i].astype(np.float32) for i in range(3))
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = (b - y) / (2.0 - 2.0 * 0.114) + 128.0
+        cr = (r - y) / (2.0 - 2.0 * 0.299) + 128.0
+        stored = np.stack([y, cb, cr, stored[..., 3]], axis=-1)
+    comp_blocks_zz = []
+    for ci in range(4):
+        plane = _pad_to(stored[..., ci] - 128.0, mcus_y * 8, mcus_x * 8)
+        coeffs = _plane_to_blocks(plane) @ fwd
+        zz = np.round(zigzag(coeffs) / q_luma.astype(np.float32)).astype(np.int32)
+        comp_blocks_zz.append(zz.reshape(mcus_y, mcus_x, 64))
+    dc_t = [HuffmanTable.from_bits_values(
+        annex_k.DC_LUMA_BITS, annex_k.DC_LUMA_VALS)]
+    ac_t = [HuffmanTable.from_bits_values(
+        annex_k.AC_LUMA_BITS, annex_k.AC_LUMA_VALS)]
+    dc_maps = [_build_encode_maps(dc_t[0])] * 2
+    ac_maps = [_build_encode_maps(ac_t[0])] * 2
+    entropy = _entropy_native if engine == "native" else _entropy_python
+    scan = entropy(comp_blocks_zz, samplings, dc_maps, ac_maps,
+                   mcus_x, mcus_y, restart_interval_mcus)
+    return _container(scan, samplings, [q_luma], dc_t, ac_t, height, width,
+                      restart_interval_mcus, comment=comment,
+                      component_ids=[67, 77, 89, 75],  # 'C','M','Y','K'
+                      quant_ids=[0] * 4, table_ids=[0] * 4,
+                      adobe_transform=2 if ycck else 0)

@@ -1,10 +1,17 @@
-"""K1, the fused pixel stage: int16 coefficient planes -> planar RGB u8.
+"""K1, the fused pixel stage: int16 coefficient planes -> planar RGB u8,
+and K1a, its approx tier.
 
 Counterpart of the fast path in ``jpeg_tpu/ops/pallas_kernels.py``
 (``fused_plane_decoder`` / ``_plane_kernel``, ``padded_plane_shapes``,
 ``plan_quant_patterns``, ``decode_planes_fused``). The CUDA kernel is
 ``csrc/fused_plane.cu``; :func:`fused_plane_decode_plain` is its plain
 PyTorch twin, computing the same fp32 operations in the same order.
+
+``idct_mode="approx"`` (K1a) is the JAX kernel's DEFAULT-precision tier:
+the IDCT's operands rounded to bf16, its sums in fp32
+(:func:`~jpeg_tpu_torch.ops.idct.idct_blocks_plain` with ``bf16=True``),
+the same kernel instantiated with a flag. Its launches count in
+:data:`LAUNCHES_APPROX`, exact K1's in :data:`LAUNCHES`.
 
 :func:`fused_plane_decode` takes the plain version only for tensors on the
 CPU. For CUDA tensors it launches the kernel or raises.
@@ -18,7 +25,11 @@ import numpy as np
 import torch
 
 from jpeg_tpu_torch.ops.color import grayscale_to_rgb, ycbcr_to_rgb
-from jpeg_tpu_torch.ops.idct import dct_basis_1d, idct_blocks_plain
+from jpeg_tpu_torch.ops.idct import (
+    dct_basis_1d,
+    dct_basis_1d_bf16,
+    idct_blocks_plain,
+)
 from jpeg_tpu_torch.ops.zigzag import unzigzag
 from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
 
@@ -28,7 +39,9 @@ from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
 TILE_W = 256
 BAND_ROWS = 128
 
-LAUNCHES = LaunchCounter()
+LAUNCHES = LaunchCounter()         # K1
+LAUNCHES_APPROX = LaunchCounter()  # K1a
+IDCT_MODES = ("exact", "approx")
 
 
 def band_mcus(geom) -> int:
@@ -63,8 +76,16 @@ def plan_quant_patterns(plan, geom) -> np.ndarray:
         for c in plan.components])
 
 
-def _basis(device) -> torch.Tensor:
-    return torch.tensor(dct_basis_1d(), dtype=torch.float32, device=device)
+def check_idct_mode(idct_mode: str) -> None:
+    if idct_mode not in IDCT_MODES:
+        raise ValueError(f"unknown idct_mode {idct_mode!r}")
+
+
+def _basis_np(idct_mode: str) -> np.ndarray:
+    """The float32 basis of ``idct_mode``: K1's, or K1a's bf16-rounded one."""
+    check_idct_mode(idct_mode)
+    a = dct_basis_1d_bf16() if idct_mode == "approx" else dct_basis_1d()
+    return np.ascontiguousarray(a, np.float32)
 
 
 def _check_inputs(planes, qtabs, geom) -> int:
@@ -100,24 +121,26 @@ def _rounding_mode(rounding: str) -> int:
     return int(rounding == "round")
 
 
-def fused_plane_decode_plain(planes, qtabs, geom,
-                             rounding: str = "truncate") -> torch.Tensor:
-    """Plain PyTorch K1. ``planes``: per component int16 [B, rows_c,
-    stride_c] (:func:`padded_plane_shapes`); ``qtabs``: f32 [B, n_comp, 64]
-    natural order. Returns planar u8 [B, 3, H_pad, W_pad].
+def fused_plane_decode_plain(planes, qtabs, geom, rounding: str = "truncate",
+                             idct_mode: str = "exact") -> torch.Tensor:
+    """Plain PyTorch K1 (``idct_mode="exact"``) or K1a (``"approx"``).
+    ``planes``: per component int16 [B, rows_c, stride_c]
+    (:func:`padded_plane_shapes`); ``qtabs``: f32 [B, n_comp, 64] natural
+    order. Returns planar u8 [B, 3, H_pad, W_pad].
 
     The separable IDCT is :func:`~jpeg_tpu_torch.ops.idct.idct_blocks_plain`,
     the kernel's order of operations."""
     _check_inputs(planes, qtabs, geom)
     _rounding_mode(rounding)
-    a = _basis(planes[0].device)
+    a = torch.from_numpy(_basis_np(idct_mode)).to(planes[0].device)
     spatial = []
     for ci, (h, v) in enumerate(geom.sampling):
         p = planes[ci]
         batch, rows, cols = p.shape
         f = p.to(torch.float32).view(batch, rows // 8, 8, cols // 8, 8)
         f = f * qtabs[:, ci].view(batch, 1, 8, 1, 8)
-        s = idct_blocks_plain(f, a).reshape(batch, rows, cols)
+        s = idct_blocks_plain(f, a, bf16=idct_mode == "approx").reshape(
+            batch, rows, cols)
         fy, fx = geom.v_max // v, geom.h_max // h
         spatial.append(s.repeat_interleave(fy, dim=1).repeat_interleave(fx, dim=2))
     if len(spatial) == 1:
@@ -133,8 +156,8 @@ def _configure(lib) -> None:
         ctypes.POINTER(i32), ctypes.POINTER(i32),  # planes, rows, strides, h, v
         i32, i32, i32, i32,  # n_comp, h_max, v_max, MCU rows of H_pad
         vp, ctypes.POINTER(ctypes.c_float), vp,  # qtab, basis (host), out
-        i64, i64, i64, i32, vp,  # batch, h_pad, w_pad, round_mode, stream
-    ]
+        i64, i64, i64, i32, i32, vp,  # batch, h_pad, w_pad, round_mode,
+    ]                                 # approx, stream
     lib.jt_divide_green_check.restype = ctypes.c_int
     lib.jt_divide_green_check.argtypes = [ctypes.c_uint32, ctypes.c_uint32, vp, vp]
 
@@ -147,14 +170,15 @@ def load_kernel():
                             headers=("idct8x8.cuh",))
 
 
-def fused_plane_decode_cuda(planes, qtabs, geom,
-                            rounding: str = "truncate") -> torch.Tensor:
-    """Launch K1 on the current stream. Same contract as
-    :func:`fused_plane_decode_plain`; every tensor must be on one CUDA
-    device and contiguous, and each plane 16-byte aligned (the kernel loads
-    a block row, eight int16, at a time)."""
+def fused_plane_decode_cuda(planes, qtabs, geom, rounding: str = "truncate",
+                            idct_mode: str = "exact") -> torch.Tensor:
+    """Launch K1 (or K1a for ``idct_mode="approx"``) on the current stream.
+    Same contract as :func:`fused_plane_decode_plain`; every tensor must be
+    on one CUDA device and contiguous, and each plane 16-byte aligned (the
+    kernel loads a block row, eight int16, at a time)."""
     batch = _check_inputs(planes, qtabs, geom)
     mode = _rounding_mode(rounding)
+    basis = _basis_np(idct_mode)
     dev = planes[0].device
     for t in (*planes, qtabs):
         if t.device != dev or not t.is_contiguous():
@@ -165,7 +189,6 @@ def fused_plane_decode_cuda(planes, qtabs, geom,
     shapes = padded_plane_shapes(geom)
     n_comp = len(shapes)
     h_pad, w_pad = padded_size(geom)
-    basis = np.ascontiguousarray(dct_basis_1d(), np.float32)
     out = torch.empty((batch, 3, h_pad, w_pad), dtype=torch.uint8, device=dev)
     ptrs = (ctypes.c_void_p * n_comp)(*[p.data_ptr() for p in planes])
     rows = (ctypes.c_int64 * n_comp)(*[s[0] for s in shapes])
@@ -177,10 +200,11 @@ def fused_plane_decode_cuda(planes, qtabs, geom,
         ptrs, rows, strides, hs, vs, n_comp, geom.h_max, geom.v_max,
         h_pad // (8 * geom.v_max), qtabs.data_ptr(),
         basis.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.data_ptr(),
-        batch, h_pad, w_pad, mode, stream)
+        batch, h_pad, w_pad, mode, int(idct_mode == "approx"), stream)
+    name = "K1a" if idct_mode == "approx" else "K1"
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
-    LAUNCHES.add()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    (LAUNCHES_APPROX if idct_mode == "approx" else LAUNCHES).add()
     return out
 
 
@@ -205,26 +229,28 @@ def division_mismatches(lo: float = 2.0**-100, hi: float = 2.0**100,
     return count, (float(lo_hi[0]) if count else 0.0), (float(lo_hi[1]) if count else 0.0)
 
 
-def fused_plane_decode(planes, qtabs, geom,
-                       rounding: str = "truncate") -> torch.Tensor:
-    """K1 wrapper: the plain version for CPU tensors, the kernel for CUDA
-    tensors (no fallback between them)."""
+def fused_plane_decode(planes, qtabs, geom, rounding: str = "truncate",
+                       idct_mode: str = "exact") -> torch.Tensor:
+    """K1 / K1a wrapper: the plain version for CPU tensors, the kernel for
+    CUDA tensors (no fallback between them)."""
     if planes[0].device.type == "cpu":
-        return fused_plane_decode_plain(planes, qtabs, geom, rounding)
+        return fused_plane_decode_plain(planes, qtabs, geom, rounding,
+                                        idct_mode)
     if planes[0].device.type == "cuda":
-        return fused_plane_decode_cuda(planes, qtabs, geom, rounding)
+        return fused_plane_decode_cuda(planes, qtabs, geom, rounding,
+                                       idct_mode)
     raise ValueError(f"K1 runs on cpu or cuda, not {planes[0].device}")
 
 
 def decode_planes_fused(planes, plan, rounding: str = "truncate",
-                        device="cuda") -> np.ndarray:
+                        device="cuda", idct_mode: str = "exact") -> np.ndarray:
     """One image's int16 planes (native_decode_planes layout) -> RGB
-    [H, W, 3] u8 on the host, through K1 on ``device``."""
+    [H, W, 3] u8 on the host, through K1 (or K1a) on ``device``."""
     from jpeg_tpu_torch.models.decoder import PipelineGeometry
 
     geom = PipelineGeometry.of(plan)
     planes_t = [torch.as_tensor(p, device=device).unsqueeze(0) for p in planes]
     qtabs = torch.as_tensor(plan_quant_patterns(plan, geom),
                             device=device).unsqueeze(0)
-    planar = fused_plane_decode(planes_t, qtabs, geom, rounding)
+    planar = fused_plane_decode(planes_t, qtabs, geom, rounding, idct_mode)
     return planar[0, :, : geom.height, : geom.width].permute(1, 2, 0).cpu().numpy()

@@ -1,5 +1,6 @@
-"""The 1-D DCT basis the pixel kernel (K1), the forward kernel (K2), the bare
-IDCT kernels (K5, K6) and their plain versions use; the compat decode's
+"""The 1-D DCT basis the pixel kernel (K1, and rounded to bf16 its approx
+tier K1a), the forward kernel (K2), the bare IDCT kernels (K5, K6) and
+their plain versions use; the compat decode's
 fused [64, 64] dequant + unzigzag + IDCT matrix; the host encoder's forward
 DCT matrix.
 
@@ -32,6 +33,13 @@ def dct_basis_1d() -> np.ndarray:
     return (alpha[:, None] / 2.0) * a
 
 
+def dct_basis_1d_bf16() -> np.ndarray:
+    """:func:`dct_basis_1d` in float32, each value rounded to bfloat16 (K1a's
+    basis, the TPU's DEFAULT-precision operand)."""
+    a = torch.tensor(dct_basis_1d(), dtype=torch.float32)
+    return bf16_round(a).numpy()
+
+
 @lru_cache(maxsize=None)
 def _idct_kron() -> np.ndarray:
     """kron(A, A): [64, 64] so that out_flat = F_flat(natural) @ K."""
@@ -48,15 +56,31 @@ def fused_idct_matrix(quant_zz: np.ndarray, dtype=np.float32) -> np.ndarray:
     return m.astype(dtype)
 
 
-def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values rounded to bfloat16 (nearest, ties to even) and widened
+    back, as ``__float2bfloat16_rn`` does."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor,
+                      bf16: bool = False) -> torch.Tensor:
     """Separable 8x8 IDCT of dequantised blocks ``f [..., R, 8, C, 8]``
     (block row, v, block column, u) with the basis ``a [8, 8]``, both fp32.
     Eight terms summed in index order with each product rounded, as K1 and
     K5 do: vertical pass first, t[y][u] = sum_v A[v][y] F[v][u], then
-    s[y][x] = sum_u t[y][u] A[u][x]."""
+    s[y][x] = sum_u t[y][u] A[u][x].
+
+    ``bf16=True`` is K1a's arithmetic, the TPU's one-pass bf16 product:
+    ``f`` and ``t`` are rounded to bf16 before the pass that reads them
+    (``a`` must be bf16-rounded already: :func:`dct_basis_1d_bf16`); every
+    product is then exact and the sums stay fp32, in the same order."""
+    if bf16:
+        f = bf16_round(f)
     t = a[0].view(8, 1, 1) * f[..., 0:1, :, :]
     for k in range(1, 8):
         t = t + a[k].view(8, 1, 1) * f[..., k:k + 1, :, :]
+    if bf16:
+        t = bf16_round(t)
     s = t[..., 0:1] * a[0]
     for k in range(1, 8):
         s = s + t[..., k:k + 1] * a[k]

@@ -31,14 +31,15 @@ def decode_batch(coeffs, matrices, geom, rounding: str = "truncate",
 
 
 def decode_batch_fast(planes_batch, qtabs_batch, geom,
-                      rounding: str = "truncate",
-                      device="cuda") -> torch.Tensor:
+                      rounding: str = "truncate", device="cuda",
+                      idct_mode: str = "exact") -> torch.Tensor:
     """Per-component int16 planes [B, rows_c, stride_c] and natural-order
     f32 quant tables [B, n_comp, 64] (numpy arrays or tensors) -> planar u8
-    [B, 3, H_pad, W_pad] on ``device``, through one K1 launch."""
+    [B, 3, H_pad, W_pad] on ``device``, through one K1 launch (K1a with
+    ``idct_mode="approx"``, the JAX function's DEFAULT-precision tier)."""
     planes = [torch.as_tensor(p).to(device).contiguous() for p in planes_batch]
     qtabs = torch.as_tensor(qtabs_batch).to(device).contiguous()
-    return fused_plane_decode(planes, qtabs, geom, rounding)
+    return fused_plane_decode(planes, qtabs, geom, rounding, idct_mode)
 
 
 def encode_batch_device(rgb_planar_batch, inv_qtabs_batch, geom,

@@ -5,7 +5,8 @@ pool over the single-image decode, compat or fast path) and
 ``BatchedCorpusDecoder``. In the latter, images are parsed and
 entropy-decoded on host threads (the C++ runtime releases the GIL) into
 int16 coefficient planes, whatever their entropy coding, grouped by
-geometry, and each group runs through one K1 launch. RGB-direct, CMYK and
+geometry, and each group runs through one K1 launch (K1a with
+``idct_mode="approx"``). RGB-direct, CMYK and
 YCCK images, which K1 does not take, are decoded inline by their worker
 through the compat path on the decoder's device.
 
@@ -48,9 +49,8 @@ from jpeg_tpu_torch.models.decoder import (
     decode_plan_fast,
     fast_path_takes,
     host_planes,
-    not_ported,
 )
-from jpeg_tpu_torch.ops.fused_plane import plan_quant_patterns
+from jpeg_tpu_torch.ops.fused_plane import check_idct_mode, plan_quant_patterns
 from jpeg_tpu_torch.parallel.batch import decode_batch_fast
 
 # Images per device claim. A 4K frame with a restart marker per MCU row has
@@ -93,8 +93,9 @@ class CorpusDecoder:
 
     ``path="compat"`` runs :func:`~jpeg_tpu_torch.models.decoder.decode_plan`
     per image, ``path="fast"``
-    :func:`~jpeg_tpu_torch.models.decoder.decode_plan_fast` (K1 for gray and
-    YCbCr streams, compat for the others). The pool persists across calls.
+    :func:`~jpeg_tpu_torch.models.decoder.decode_plan_fast` (K1, or K1a
+    with ``idct_mode="approx"``, for gray and YCbCr streams, compat for the
+    others). The pool persists across calls.
     """
 
     def __init__(self, workers: int | None = None, path: str = "compat",
@@ -102,8 +103,7 @@ class CorpusDecoder:
                  device="cuda"):
         if path not in ("compat", "fast"):
             raise ValueError(f"unknown path {path!r}")
-        if idct_mode != "exact":
-            raise not_ported(f"idct_mode={idct_mode!r}", 1)
+        check_idct_mode(idct_mode)
         self.workers = workers or os.cpu_count() or 1
         self.path = path
         self.rounding = rounding
@@ -144,19 +144,21 @@ class CorpusDecoder:
 
 
 class BatchedCorpusDecoder:
-    """Geometry-bucketed corpus decode on ``device``.
+    """Geometry-bucketed corpus decode on ``device``; each bucket through one
+    K1 launch, or K1a with ``idct_mode="approx"`` (entropy decode and the
+    inline compat route stay exact).
 
     Counters (cumulative over :meth:`decode_all` calls): ``device_frames``
     decoded by K3, ``fallback_frames`` claimed by the device thread but sent
-    to the host route, ``entropy_launches`` (K3) and ``pixel_launches`` (K1)
-    made through this decoder.
+    to the host route, ``entropy_launches`` (K3) and ``pixel_launches`` (K1
+    or K1a) made through this decoder.
     """
 
     def __init__(self, workers: int | None = None, rounding: str = "truncate",
                  hybrid_device: bool = False, device_batch: int | None = None,
                  idct_mode: str = "exact", device="cuda"):
-        if idct_mode != "exact":
-            raise not_ported(f"idct_mode={idct_mode!r}", 1)
+        check_idct_mode(idct_mode)
+        self.idct_mode = idct_mode
         self.workers = workers or os.cpu_count() or 1
         self.rounding = rounding
         self.hybrid_device = hybrid_device
@@ -337,7 +339,8 @@ class BatchedCorpusDecoder:
             bp = [np.stack([parsed[i][3][c] for i in idxs])
                   for c in range(len(geom.sampling))]
             bq = np.stack([plan_quant_patterns(parsed[i][1], geom) for i in idxs])
-            planar = decode_batch_fast(bp, bq, geom, self.rounding, self.device)
+            planar = decode_batch_fast(bp, bq, geom, self.rounding, self.device,
+                                       self.idct_mode)
             self.pixel_launches += 1
             rgb = (planar[:, :, : geom.height, : geom.width]
                    .permute(0, 2, 3, 1).contiguous().cpu().numpy())

@@ -137,15 +137,17 @@ def test_component_plane_equals_jax(v, h, v_max, h_max):
 
 
 def test_off_slice_options_of_the_compat_route_raise():
-    """``engine='oracle'`` still raises; fancy upsampling, once refused,
-    equals the JAX package's (exactly on assembled planes, +-1 u8 on
-    pixels)."""
+    """``engine='oracle'``, once refused, runs the NumPy reference decoder:
+    the same coefficients and pixels as the native engine. Fancy
+    upsampling, once refused, equals the JAX package's (exactly on
+    assembled planes, +-1 u8 on pixels)."""
     data = _stream("2x2")
     plan = parse_jpeg(data)
-    with pytest.raises(NotImplementedError, match="engine='oracle'"):
-        decode_bytes(data, engine="oracle", device="cpu")
-    with pytest.raises(NotImplementedError, match="engine='oracle'"):
-        dec.decode_coefficients_host(plan, "oracle")
+    np.testing.assert_array_equal(
+        decode_bytes(data, engine="oracle", device="cpu"),
+        decode_bytes(data, engine="native", device="cpu"))
+    np.testing.assert_array_equal(dec.decode_coefficients_host(plan, "oracle"),
+                                  dec.decode_coefficients_host(plan, "native"))
     got = dec.decode_plan(plan, upsample="fancy", device="cpu")
     want = np.asarray(ref_dec.decode_plan(ref_parse(data), upsample="fancy"))
     _share_within_one(got, want)

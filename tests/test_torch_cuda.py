@@ -418,7 +418,7 @@ def test_k1_launcher_refuses_factors_it_does_not_take(cuda, h_max, v_max,
         (ctypes.c_int32 * n)(*[v for _, v in sampling]),
         n, h_max, v_max, 1, qt.data_ptr(),
         basis.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), out.data_ptr(),
-        1, 128, 256, 0, torch.cuda.current_stream(cuda).cuda_stream)
+        1, 128, 256, 0, 0, torch.cuda.current_stream(cuda).cuda_stream)
     torch.cuda.synchronize()
     assert rc == 1
     assert not bool(out.any())
@@ -470,3 +470,64 @@ def test_compat_route_colour_models_on_card(cuda, name):
     np.testing.assert_array_equal(got, decode_bytes(data, device=cuda))
     want = decode_bytes(data, device="cpu")
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def _k1_batch(sub, cuda):
+    """Two seeded 520x200 images at one sampling, as K1's inputs on ``cuda``."""
+    plans = []
+    for seed in (1, 2):
+        img = _image(520, 200, seed)
+        data = (encode_rgb(img[..., 0], quality=90, grayscale=True) if sub is None
+                else encode_rgb(img, quality=90, subsampling=sub))
+        plans.append(parse_jpeg(data))
+    geom = PipelineGeometry.of(plans[0])
+    host = [native_decode_planes(p) for p in plans]
+    planes = [torch.from_numpy(np.stack([h[c] for h in host])).to(cuda)
+              for c in range(len(host[0]))]
+    qt = torch.from_numpy(np.stack(
+        [k1.plan_quant_patterns(p, geom) for p in plans])).to(cuda)
+    return planes, qt, geom
+
+
+@pytest.mark.parametrize("rounding", ["truncate", "round"])
+@pytest.mark.parametrize("sampling", K1_SAMPLINGS)
+def test_k1a_kernel_equals_plain_every_sampling(cuda, sampling, rounding):
+    """K1a, the approx tier: bf16 operands rounded where the twin rounds
+    them, sums in its order, so every pixel is the twin's; it counts its
+    own launches, not K1's."""
+    planes, qt, geom = _k1_batch(K1_SAMPLINGS[sampling], cuda)
+    before, before_k1 = k1.LAUNCHES_APPROX.value, k1.LAUNCHES.value
+    got = k1.fused_plane_decode(planes, qt, geom, rounding, "approx")
+    assert k1.LAUNCHES_APPROX.value == before + 1
+    assert k1.LAUNCHES.value == before_k1
+    assert torch.equal(got, k1.fused_plane_decode_plain(planes, qt, geom,
+                                                        rounding, "approx"))
+
+
+def test_k1a_within_gate_of_k1_on_4k_frame(cuda):
+    """docs/APPROX_QUALITY.md's gate against exact K1 on the main path's
+    frame: max |diff| <= 2 u8, >= 50 dB; and the same through
+    ``decode_bytes`` on the card and the CPU."""
+    data = _read("synth_3840x2160_s0_q85_rst1.jpg")
+    approx = decode_bytes(data, path="fast", idct_mode="approx", device=cuda)
+    exact = decode_bytes(data, path="fast", device=cuda)
+    diff = np.abs(approx.astype(float) - exact.astype(float))
+    assert diff.max() <= 2 and 10 * np.log10(255.0**2 / (diff**2).mean()) >= 50
+    np.testing.assert_array_equal(approx, decode_bytes(
+        data, path="fast", idct_mode="approx", device="cpu"))
+
+
+def test_approx_corpus_on_card(cuda):
+    """BatchedCorpusDecoder(idct_mode="approx") on the card, hybrid: each
+    frame equals the single-image approx decode on the CPU, through K1a."""
+    items = [_read(n) for n in SMALL] * 3
+    before = k1.LAUNCHES_APPROX.value
+    dec = BatchedCorpusDecoder(hybrid_device=True, device_batch=2,
+                               idct_mode="approx", device=cuda)
+    got = dec.decode_all(items)
+    dec.close()
+    assert k1.LAUNCHES_APPROX.value > before
+    for r, data in zip(got, items):
+        assert r.ok
+        np.testing.assert_array_equal(r.rgb, decode_bytes(
+            data, path="fast", idct_mode="approx", device="cpu"))

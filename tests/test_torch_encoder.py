@@ -289,7 +289,8 @@ def test_rejected_shapes_raise_value_error(entry, shape):
     (lambda img: enc.encode_rgb(img.astype(np.uint16) * 16, precision=12),
      "12-bit"),
     (lambda img: enc.encode_rgb_progressive(img, quality=85), "progressive"),
-    (lambda img: enc.encode_cmyk(np.zeros((8, 8, 4), np.uint8)), "CMYK"),
+    (lambda img: enc.encode_cmyk(np.zeros((8, 8, 4), np.uint8),
+                                 arithmetic=True), "CMYK"),
 ])
 def test_unported_routes_raise(call, match):
     with pytest.raises(NotImplementedError, match=match) as err:

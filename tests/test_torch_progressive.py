@@ -247,10 +247,15 @@ def test_k1_route_matches_jax_fast_path(name, rounding):
 
 
 def test_oracle_engine_raises_on_every_entropy_coding():
+    """``engine='oracle'``, once refused on every entropy coding, now
+    decodes each (progressive, SOF10, SOF9, baseline) to the native
+    engine's coefficients."""
     for data in (_prog_stream("pil_sub2"), _prog_stream("sof10"),
                  _sof9_stream("rst1"), encode_rgb(synthetic_image(32, 32, 1))):
-        with pytest.raises(NotImplementedError, match="engine='oracle'"):
-            dec.decode_coefficients_host(parse_jpeg(data), "oracle")
+        plan = parse_jpeg(data)
+        np.testing.assert_array_equal(
+            dec.decode_coefficients_host(plan, "oracle"),
+            dec.decode_coefficients_host(plan, "native"))
 
 
 def _restart_corpus(n):
