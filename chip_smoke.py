@@ -8,10 +8,13 @@ of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``) and
 the five CUDA libraries (K1-K6, K1a with K1) from this checkout (all at
 once), checks each kernel against its plain PyTorch version at the shapes
 its path gives it (K1, its approx tier K1a and K2 on every sampling they
-take, K3 and K4 on corrupt streams and eight 4K frames), holds K1a within
-the approx gate of K1 (docs/APPROX_QUALITY.md), times K1 and K1a at 8 and
-62 4K frames, K3 at 1, 8 and 32, K4 and K2 at 1 and 8, each beside its
-bound, then drives these paths:
+take, K3 and K4 on corrupt streams and eight 4K frames; K1a, whose IDCT
+runs on the tensor cores, to the tolerance of their order of sums, the
+others bit for bit), shows that K1a's machine code holds tensor-core
+instructions (HMMA) and K1's none, holds K1a within the approx gate of K1
+(docs/APPROX_QUALITY.md), times K1 and K1a at 8 and 62 4K frames, K3 at 1,
+8 and 32, K4 and K2 at 1 and 8, each beside its bound, then drives these
+paths:
 
 - the hybrid host + device corpus decode of 64 images (62 of them
   3840x2160 frames) through ``BatchedCorpusDecoder(hybrid_device=True)``
@@ -49,7 +52,8 @@ Last, the command line (``cli_path``): ``jpeg_tpu_torch.cli.main`` in
 process on the main path's 64 items written to a temporary directory:
 ``corpus --batched --hybrid-device`` with a manifest (K3 and K1), the same
 resumed in runs of ``--limit 24``, ``corpus --idct approx`` (K1a) with the
-approx gate checked in process, ``decode`` (fast exact and approx, compat,
+approx gate and K1a's twin checked in process, ``decode`` (fast exact and
+approx, compat,
 ``--engine oracle``), ``encode`` of a P6, ``info`` (also as ``python -m
 jpeg_tpu_torch``) and one K1 launch inside ``device_trace``.
 
@@ -59,8 +63,9 @@ result line, and when no CUDA device is present.
 
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (inputs read once, outputs written once) over the
-H100 SXM's 3.35 TB/s and its fp32 operations over 67 TFLOP/s (K3 and K4 do
-integer work, for which the data sheet gives no rate: bytes only).
+H100 SXM's 3.35 TB/s and its operations at the rate of their type: fp32
+over 67 TFLOP/s, K1a's bf16 tensor-core products over 989 TFLOP/s (K3 and
+K4 do integer work, for which the data sheet gives no rate: bytes only).
 ``library_ms`` is one PyTorch route to the same function where there is
 one (K5 and K6: cuDNN convolution + pixel shuffle), timed and never used.
 
@@ -69,8 +74,9 @@ line describing the kernels, and last a JSON result line.
 
     python3 chip_smoke.py --times [--package DIR]
 
-only builds the kernels and times them at those shapes (K1 and K1a at 8 4K
-frames, K2-K6 as above; no checks, no result line), from this checkout's package or
+only builds the kernels and times them at those shapes (K1 and K1a at 8
+and 62 4K frames, K2-K6 as above; no checks, no result line), from this
+checkout's package or
 from the ``jpeg_tpu_torch`` of another checkout ``DIR``: two versions of a
 kernel are compared by running both on the same card, one after the other,
 in turns.
@@ -117,6 +123,7 @@ IDCT_SHAPE = (4096, 3840)  # bench.py's bench_idct_roofline plane
 IDCT_REL_TOL = 1e-6        # K5/K6 vs float64, relative to max |out|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM spec peaks (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 # fp32 operations of the transform kernels: a 1-D pass is 8 products and 7
 # sums per output, two passes per 8x8 block, plus one dequantise (K5, K6)
 # or quantise (K2) product per coefficient; K1 forms each mirrored product
@@ -124,9 +131,21 @@ FP32_OPS_PER_S = 67e12
 # (+3 when rounding), K2 15 (its chroma box mean not counted).
 OPS_PER_BLOCK = 2 * 64 * 15 + 64
 K1_OPS_PER_BLOCK = 2 * (32 * 8 + 64 * 7) + 64
+# K1a: per pair of blocks one m16n8k16 and one m16n8k8 bf16 product (2 x
+# 16 x 8 x 16 + 2 x 16 x 8 x 8 operations), per block 64 fp32 dequantise
+# products; colour as K1.
+K1A_TC_OPS_PER_BLOCK = (2 * 16 * 8 * 16 + 2 * 16 * 8 * 8) // 2
 # docs/APPROX_QUALITY.md's gate for the approx tier against the exact one.
 APPROX_MAX_DIFF = 2
 APPROX_MIN_PSNR = 50.0
+# K1a against its plain twin: the tensor cores sum the exact bf16 products
+# in their own order, a few fp32 ulps from the twin's, which rarely moves a
+# value across a bf16 rounding point of the vertical pass or a u8 boundary:
+# max |diff| <= 2 u8, at most 1e-3 of the values differing, every frame
+# >= 70 dB (a wrong basis, rounding or pair packing changes percents).
+K1A_TWIN_MAX_DIFF = 2
+K1A_TWIN_MAX_SHARE = 1e-3
+K1A_TWIN_MIN_PSNR = 70.0
 
 
 class CheckFailed(Exception):
@@ -226,11 +245,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: float = 0.0) -> dict:
-    """The least time for ``n_bytes`` moved and ``n_ops`` fp32 operations,
-    and which of the two sets it."""
+def ops_ms(n_ops: float = 0.0, n_tc_ops: float = 0.0) -> float:
+    """The least time for ``n_ops`` fp32 operations and ``n_tc_ops`` bf16
+    tensor-core operations, each at its peak rate."""
+    return (n_ops / FP32_OPS_PER_S + n_tc_ops / BF16_TC_OPS_PER_S) * 1e3
+
+
+def bound(n_bytes: int, n_ops: float = 0.0, n_tc_ops: float = 0.0) -> dict:
+    """The least time for ``n_bytes`` moved and ``n_ops`` fp32 (and
+    ``n_tc_ops`` bf16 tensor-core) operations, and which of the two sets
+    it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops_ms(n_ops, n_tc_ops)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -238,6 +264,53 @@ def bound(n_bytes: int, n_ops: float = 0.0) -> dict:
 def share(ms: float, b: dict) -> str:
     return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
             f"{b['bound_ms'] / ms:.4f} of it")
+
+
+class TwinStats:
+    """K1a against its plain twin, accumulated over every comparison: the
+    largest |diff|, values differing, values compared, smallest frame PSNR."""
+
+    def __init__(self):
+        self.max, self.differ, self.values, self.min_psnr = 0, 0, 0, float("inf")
+
+    def check(self, got, want, what: str) -> None:
+        """Hold u8 frames ``got`` to ``want`` (tensors or arrays, first axis
+        the frame) within the tolerance, and add them to the totals."""
+        import torch
+
+        d = (torch.as_tensor(got).to(torch.int16)
+             - torch.as_tensor(want).to(torch.int16)).abs()
+        mx, n = int(d.max()), int((d != 0).sum())
+        # The smallest frame PSNR is the largest frame MSE's.
+        mse = (d.double() ** 2).flatten(1).mean(1).max().item() if n else 0.0
+        p = float("inf") if mse == 0 else 10.0 * np.log10(255.0**2 / mse)
+        self.max, self.min_psnr = max(self.max, mx), min(self.min_psnr, p)
+        self.differ += n
+        self.values += d.numel()
+        check(mx <= K1A_TWIN_MAX_DIFF and n <= K1A_TWIN_MAX_SHARE * d.numel()
+              and p >= K1A_TWIN_MIN_PSNR,
+              f"K1a vs plain, {what}: max |diff| {mx} <= {K1A_TWIN_MAX_DIFF} "
+              f"u8, {n / d.numel():.3e} of values differ <= "
+              f"{K1A_TWIN_MAX_SHARE}, smallest PSNR {p:.2f} dB >= "
+              f"{K1A_TWIN_MIN_PSNR}")
+
+
+def sass_ops(lib_path: str, op: str) -> dict:
+    """How many ``op`` instructions each function of a built library holds
+    (``cuobjdump -sass``, beside nvcc), by mangled name."""
+    from jpeg_tpu_torch.utils.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "*/" in line and f" {op}" in line.split("*/")[1]:
+            counts[fn] += 1
+    return counts
 
 
 def k1_inputs(plans, dev):
@@ -328,27 +401,52 @@ def run() -> list[dict]:
     #    takes (two small seeded images each, encoded by the port, both
     #    roundings), then each bucket of the main path: the two 512x384
     #    images and the CORPUS_4K frames.
-    #    K1a, the approx tier, the same way against its own twin.
+    #    K1a, the approx tier, against its own twin to the tolerance of the
+    #    tensor cores' order of sums.
+    k1a_twin = TwinStats()
+
     def k1_check(label, plans, roundings=("truncate",)):
         planes, qtabs, geom, hp = k1_inputs(plans, dev)
+        crop = (slice(None), slice(None), slice(geom.height), slice(geom.width))
         for rounding in roundings:
-            for name, mode in (("K1", "exact"), ("K1a", "approx")):
-                out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding, mode)
-                out_p = k1.fused_plane_decode_plain(planes, qtabs, geom,
-                                                    rounding, mode)
-                err = int((out_k.to(torch.int16) - out_p.to(torch.int16))
-                          .abs().max())
-                check(err == 0, f"{name} vs plain, {label} bucket, {rounding}: "
-                      "every pixel identical")
-                del out_k, out_p
+            out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding)
+            out_p = k1.fused_plane_decode_plain(planes, qtabs, geom, rounding)
+            check(torch.equal(out_k, out_p), f"K1 vs plain, {label} bucket, "
+                  f"{rounding}: every pixel identical")
+            del out_k, out_p
+            out_k = k1.fused_plane_decode(planes, qtabs, geom, rounding, "approx")
+            out_p = k1.fused_plane_decode_plain(planes, qtabs, geom, rounding,
+                                                "approx")
+            k1a_twin.check(out_k[crop], out_p[crop], f"{label} bucket, {rounding}")
+            del out_k, out_p
         return planes, qtabs, geom, hp
 
-    def k1_bound(planes, qtabs, geom) -> dict:
+    def k1_work(planes, qtabs, geom, approx=False):
+        """(bytes, fp32 operations, bf16 tensor-core operations) of K1 or,
+        with ``approx``, K1a on these inputs."""
         h_pad, w_pad = k1.padded_size(geom)
         pixels = qtabs.shape[0] * h_pad * w_pad
         blocks = sum(p.numel() for p in planes) // 64
-        return bound(nbytes(*planes, qtabs) + 3 * pixels,
-                     blocks * K1_OPS_PER_BLOCK + 12 * pixels)
+        n_bytes = nbytes(*planes, qtabs) + 3 * pixels
+        if approx:  # K1a: the products on the tensor cores
+            return (n_bytes, blocks * 64 + 12 * pixels,
+                    blocks * K1A_TC_OPS_PER_BLOCK)
+        return n_bytes, blocks * K1_OPS_PER_BLOCK + 12 * pixels, 0
+
+    def k1_bound(planes, qtabs, geom, approx=False) -> dict:
+        return bound(*k1_work(planes, qtabs, geom, approx))
+
+    # K1a's machine code: the IDCT on the tensor cores, none in K1's.
+    lib_path = k1.load_kernel()._name
+    hmma = sass_ops(lib_path, "HMMA")
+    k1a_hmma = sum(n for f, n in hmma.items() if "fused_plane_kernelILb1E" in f)
+    k1_hmma = sum(n for f, n in hmma.items() if "fused_plane_kernelILb0E" in f)
+    attrs = {m: k1.kernel_attributes(m) for m in ("exact", "approx")}
+    check(k1a_hmma > 0 and k1_hmma == 0 and attrs["approx"]["local_bytes"] == 0,
+          f"K1a's SASS holds {k1a_hmma} HMMA (tensor-core) instructions, K1's "
+          f"{k1_hmma}; registers a thread K1 {attrs['exact']['registers']}, "
+          f"K1a {attrs['approx']['registers']}, local (spill) bytes K1 "
+          f"{attrs['exact']['local_bytes']}, K1a {attrs['approx']['local_bytes']}")
 
     for name, sub in K1_SAMPLINGS.items():
         imgs = [synthetic_image(520, 200, seed=seed) for seed in (5, 6)]
@@ -373,7 +471,11 @@ def run() -> list[dict]:
     print(f"K1 {CORPUS_4K}x4K bucket: kernel {k1_ms:.4f} ms, plain "
           f"{k1_plain_ms:.3f} ms (median, CUDA events); {share(k1_ms, k1_bnd)}",
           flush=True)
-    k1a = k1a_gate_and_times(planes, qtabs, geom, k1_bnd)
+    k1a_bnd = k1_bound(planes, qtabs, geom, approx=True)
+    k1a_ops = ops_ms(*k1_work(planes, qtabs, geom, approx=True)[1:])
+    k1a = k1a_gate_and_times(planes, qtabs, geom, k1a_bnd)
+    print(f"K1a {CORPUS_4K}x4K operations alone (fp32 dequantise and colour at "
+          f"67 TFLOP/s, bf16 products at 989): {k1a_ops:.4f} ms", flush=True)
     # The same at one device claim's size (contiguous leading slices).
     p8, q8 = [p[:BATCH] for p in planes], qtabs[:BATCH]
     k1_8 = cuda_ms(lambda: k1.fused_plane_decode(p8, q8, geom), 10, 2,
@@ -387,8 +489,11 @@ def run() -> list[dict]:
                     10, 2, queued=True)
     k1a_8_plain = cuda_ms(lambda: k1.fused_plane_decode_plain(
         p8, q8, geom, idct_mode="approx"), 3, 1)
+    k1a_8_bnd = k1_bound(p8, q8, geom, approx=True)
     print(f"K1a {BATCH}x4K: kernel {k1a_8:.4f} ms, plain {k1a_8_plain:.3f} ms "
-          f"(median, CUDA events); {share(k1a_8, k1_8_bnd)}", flush=True)
+          f"(median, CUDA events); {share(k1a_8, k1a_8_bnd)}; operations "
+          f"alone {ops_ms(*k1_work(p8, q8, geom, approx=True)[1:]):.4f} ms",
+          flush=True)
     del planes, qtabs, p8, q8
     plans4k, host_planes = plans4k[:BATCH], host_planes[:BATCH]
 
@@ -546,7 +651,10 @@ def run() -> list[dict]:
 
     # 13. The command line: corpus (exact, resumed, approx), decode, encode,
     #     info, python -m, and a device trace.
-    cli = cli_path(dev)
+    cli = cli_path(dev, k1a_twin)
+    print(f"K1a vs plain over every comparison: max |diff| {k1a_twin.max} u8, "
+          f"{k1a_twin.differ} of {k1a_twin.values} values differ, smallest "
+          f"frame PSNR {k1a_twin.min_psnr:.2f} dB", flush=True)
 
     print(card, flush=True)  # nvidia-smi name, power limit
     # "launches" counts the main path's run (the hybrid corpus decode for
@@ -560,15 +668,25 @@ def run() -> list[dict]:
          "launches_cli_corpus": cli["k1"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
+         "registers": attrs["exact"]["registers"],
          "ms_8_frames": k1_8, "bound_ms_8_frames": k1_8_bnd["bound_ms"]},
         {"name": "K1a fused_plane approx", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:301",
-         "launches": cli["k1a"], "max_abs_err": 0,
-         "ms": k1a["ms"], "plain_ms": k1a["plain_ms"], **k1_bnd,
+         "launches": cli["k1a"], "max_abs_err": k1a_twin.max,
+         "twin_differing_share": k1a_twin.differ / k1a_twin.values,
+         # null: every frame equal to the twin's
+         "twin_min_psnr_db": (None if k1a_twin.min_psnr == float("inf")
+                              else k1a_twin.min_psnr),
+         "tensor_cores": True,
+         "hmma_instructions": k1a_hmma,
+         "registers": attrs["approx"]["registers"],
+         "local_bytes": attrs["approx"]["local_bytes"],
+         "ms": k1a["ms"], "plain_ms": k1a["plain_ms"], **k1a_bnd,
+         "bound_ops_ms": k1a_ops,
          "library_ms": None, "frames": CORPUS_4K, "ms_8_frames": k1a_8,
          "plain_ms_8_frames": k1a_8_plain,
-         "bound_ms_8_frames": k1_8_bnd["bound_ms"],
+         "bound_ms_8_frames": k1a_8_bnd["bound_ms"],
          "vs_k1_max_abs_diff": k1a["max_diff"],
          "vs_k1_min_psnr_db": k1a["min_psnr"]},
         {"name": "K2 fused_encode", "route": "cuda",
@@ -640,7 +758,7 @@ def k1a_gate_and_times(planes, qtabs, geom, bnd) -> dict:
             "min_psnr": min_psnr}
 
 
-def cli_path(dev) -> dict:
+def cli_path(dev, k1a_twin: TwinStats) -> dict:
     """The command line, in process (``jpeg_tpu_torch.cli.main``, so the
     launch counters can be read) on the main path's 64 items written to a
     temporary directory:
@@ -651,7 +769,8 @@ def cli_path(dev) -> dict:
       the reports add up to every item, each in the manifest once;
     - ``corpus --idct approx``: every item through K1a; then in process,
       ``BatchedCorpusDecoder`` exact and approx on the same files, every
-      frame within the approx gate;
+      frame within the approx gate, and the approx frames within the
+      order-of-sums tolerance of K1a's plain twin (added to ``k1a_twin``);
     - ``decode`` of a 4K frame to P6 on the fast path (exact and approx) and
       the compat default, each equal to ``decode_bytes``; ``--engine
       oracle`` on a 512x384 image equal to the native engine;
@@ -762,8 +881,24 @@ def cli_path(dev) -> dict:
               f"BatchedCorpusDecoder(idct_mode='approx') on the cli corpus: "
               f"every frame within {APPROX_MAX_DIFF} u8 (max {worst}) and "
               f"{APPROX_MIN_PSNR} dB (min {min_psnr:.2f}) of the exact run")
+        twins = {}  # K1a's plain twin on the card, once per distinct file
+        for name in dict.fromkeys(names):
+            planes, qtabs, geom, _ = k1_inputs([parse_jpeg(read(name))], dev)
+            twins[name] = k1.fused_plane_decode_plain(
+                planes, qtabs, geom, idct_mode="approx")[
+                    0, :, : geom.height, : geom.width].permute(1, 2, 0)
+        for name, res in zip(names[:2], results["approx"]):
+            k1a_twin.check(torch.as_tensor(res.rgb, device=dev)[None],
+                           twins[name][None],
+                           f"BatchedCorpusDecoder(idct_mode='approx'), {name}")
+        k1a_twin.check(
+            torch.stack([torch.as_tensor(r.rgb, device=dev)
+                         for r in results["approx"][2:]]),
+            torch.stack([twins[n] for n in names[2:]]),
+            f"BatchedCorpusDecoder(idct_mode='approx'), the cli corpus's "
+            f"{len(names) - 2} 4K frames")
         approx_4k = results["approx"][2].rgb
-        del results
+        del results, twins
 
         frame = paths[2]
         data = read(names[2])
@@ -1345,7 +1480,8 @@ def check_k2(frames, dev) -> dict:
 def kernel_times(package_dir: str) -> None:
     """``--times``: every kernel of the ``jpeg_tpu_torch`` under
     ``package_dir``, built and timed alone at the smoke's shapes (K1, and
-    K1a where the package has it, at 8 4K frames; K2, K4 at 1 and 8; K3 at 1, 8 and 32; K5 and K6 at
+    K1a where the package has it, at 8 and 62 4K frames; K2, K4 at 1 and 8;
+    K3 at 1, 8 and 32; K5 and K6 at
     [4096, 3840], also one launch at a time after an L2 flush), launches
     queued in a row behind a busy card so the wrappers' host time stays out;
     then the two passes of K3 and K4 apart. Prints one line per time."""
@@ -1380,15 +1516,16 @@ def kernel_times(package_dir: str) -> None:
               f"flush {cold:.4f} ms", flush=True)
     del x, qpat
     planes, qtabs, geom, _ = k1_inputs(
-        [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(BATCH)], dev)
-    ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom), 10, 2,
-                 inner=10, queued=True)
-    print(f"times K1 {BATCH}x4K: {ms:.4f} ms", flush=True)
-    if hasattr(k1, "LAUNCHES_APPROX"):  # a package with K1a
-        ms = cuda_ms(lambda: k1.fused_plane_decode(planes, qtabs, geom,
-                                                   idct_mode="approx"),
-                     10, 2, inner=10, queued=True)
-        print(f"times K1a {BATCH}x4K: {ms:.4f} ms", flush=True)
+        [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(CORPUS_4K)], dev)
+    modes = ("exact", "approx") if hasattr(k1, "LAUNCHES_APPROX") else ("exact",)
+    for n in (BATCH, CORPUS_4K):  # contiguous leading slices
+        p, q = [pl[:n] for pl in planes], qtabs[:n]
+        for mode in modes:
+            ms = cuda_ms(lambda: k1.fused_plane_decode(p, q, geom,
+                                                       idct_mode=mode),
+                         10, 2, inner=10 if n == BATCH else 3, queued=True)
+            print(f"times {'K1a' if mode == 'approx' else 'K1'} {n}x4K: "
+                  f"{ms:.4f} ms", flush=True)
     del planes, qtabs
     frames = [synthetic_image(3840, 2160, seed=i % 2) for i in range(BATCH)]
     geom, rgb, iq = k2_inputs(frames, dev, subsampling=(2, 2))

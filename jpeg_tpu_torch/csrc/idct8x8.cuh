@@ -1,6 +1,6 @@
 // The 8x8 inverse DCT of one dequantised block held in a thread's registers,
-// shared by K1 and its approx tier K1a (fused_plane.cu) and K5/K6
-// (idct_only.cu). Both libraries are built with --fmad=false.
+// shared by K1 (fused_plane.cu) and K5/K6 (idct_only.cu). Both libraries are
+// built with --fmad=false.
 //
 // Exactness: every product and every sum rounded on its own (__fmul_rn /
 // __fadd_rn), each sum in ascending index order, vertical pass first, as
@@ -9,12 +9,11 @@
 // (tests/test_torch_fused_plane.py checks it), so each rounded product also
 // serves output 7-y, negated for odd v: the twin's terms in the twin's
 // order, with half the products (~1,500 fp32 instructions a block).
-// K1a's variant (idct8_columns_bf16, idct8_row_bf16, at the end) rounds its
-// operands to bf16 and sums with fma, exact on those operands.
+// K1a, the bf16 tier, does not use it: its IDCT runs on the tensor cores,
+// two blocks per mma.sync pair (fused_plane.cu, idct_stage_mma).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The 1-D basis A[u][x], row-major, passed by value as a kernel argument:
@@ -65,68 +64,6 @@ __device__ __forceinline__ void idct8_row(const float (&t)[8], const float* a,
       const float p = __fmul_rn(t[u], a[u * 8 + x]);
       lo = __fadd_rn(lo, p);
       hi = __fadd_rn(hi, (u & 1) ? -p : p);
-    }
-    s[x] = lo;
-    s[7 - x] = hi;
-  }
-}
-
-// x rounded to bfloat16 (to nearest, ties to even) and widened back: exact,
-// and symmetric in sign, so the mirrored products stay valid.
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// K1a's IDCT, the TPU's one-pass bf16 product (Precision.DEFAULT of
-// jpeg_tpu/ops/pallas_kernels.py::sandwich_idct_split): the dequantised
-// block rounded to bf16, the vertical pass with a bf16-rounded basis `a`,
-// its result rounded to bf16, the horizontal pass. Sums in fp32, in the
-// order of idct8_columns / idct8_row. A product of two bf16 values (8-bit
-// significands) is exact in fp32, so a fused multiply-add, which rounds
-// once, gives the bits of the twin's rounded product then rounded sum:
-// each term is one __fmaf_rn where K1 spends a product and two sums on a
-// mirrored pair. The plain twin is ops/idct.py::idct_blocks_plain(...,
-// bf16=True).
-__device__ __forceinline__ void idct8_columns_bf16(float (&f)[8][8],
-                                                   const float* a) {
-#pragma unroll
-  for (int v = 0; v < 8; ++v)
-#pragma unroll
-    for (int u = 0; u < 8; ++u) f[v][u] = bf16_round(f[v][u]);
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    float col[8];
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const float p0 = __fmul_rn(a[y], f[0][u]);
-      float lo = p0, hi = p0;
-#pragma unroll
-      for (int v = 1; v < 8; ++v) {
-        const float c = a[v * 8 + y];
-        lo = __fmaf_rn(c, f[v][u], lo);
-        hi = __fmaf_rn((v & 1) ? -c : c, f[v][u], hi);
-      }
-      col[y] = bf16_round(lo);
-      col[7 - y] = bf16_round(hi);
-    }
-#pragma unroll
-    for (int y = 0; y < 8; ++y) f[y][u] = col[y];
-  }
-}
-
-// K1a's horizontal pass of one row (operands already bf16): s[x] = sum_u
-// t[u] * A[u][x], u ascending from the u = 0 product, one fma a term.
-__device__ __forceinline__ void idct8_row_bf16(const float (&t)[8],
-                                               const float* a, float (&s)[8]) {
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const float p0 = __fmul_rn(t[0], a[x]);
-    float lo = p0, hi = p0;
-#pragma unroll
-    for (int u = 1; u < 8; ++u) {
-      const float c = a[u * 8 + x];
-      lo = __fmaf_rn(t[u], c, lo);
-      hi = __fmaf_rn(t[u], (u & 1) ? -c : c, hi);
     }
     s[x] = lo;
     s[7 - x] = hi;

@@ -10,8 +10,11 @@ PyTorch twin, computing the same fp32 operations in the same order.
 ``idct_mode="approx"`` (K1a) is the JAX kernel's DEFAULT-precision tier:
 the IDCT's operands rounded to bf16, its sums in fp32
 (:func:`~jpeg_tpu_torch.ops.idct.idct_blocks_plain` with ``bf16=True``),
-the same kernel instantiated with a flag. Its launches count in
-:data:`LAUNCHES_APPROX`, exact K1's in :data:`LAUNCHES`.
+the same kernel instantiated with a flag, whose IDCT runs on the tensor
+cores (bf16 ``mma.sync``, fp32 sums). The tensor core sums the exact bf16
+products in its own order, so K1a equals its twin to a tolerance (a pixel
+rarely 1 u8 apart), where K1 equals its twin bit for bit. Its launches
+count in :data:`LAUNCHES_APPROX`, exact K1's in :data:`LAUNCHES`.
 
 :func:`fused_plane_decode` takes the plain version only for tensors on the
 CPU. For CUDA tensors it launches the kernel or raises.
@@ -160,6 +163,8 @@ def _configure(lib) -> None:
     ]                                 # approx, stream
     lib.jt_divide_green_check.restype = ctypes.c_int
     lib.jt_divide_green_check.argtypes = [ctypes.c_uint32, ctypes.c_uint32, vp, vp]
+    lib.jt_fused_plane_attributes.restype = ctypes.c_int
+    lib.jt_fused_plane_attributes.argtypes = [i32, ctypes.POINTER(i32)]
 
 
 def load_kernel():
@@ -206,6 +211,17 @@ def fused_plane_decode_cuda(planes, qtabs, geom, rounding: str = "truncate",
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     (LAUNCHES_APPROX if idct_mode == "approx" else LAUNCHES).add()
     return out
+
+
+def kernel_attributes(idct_mode: str = "exact") -> dict:
+    """K1's (or K1a's) compiled kernel on the card: registers a thread and
+    local bytes a thread (spills)."""
+    check_idct_mode(idct_mode)
+    out = (ctypes.c_int32 * 2)()
+    rc = load_kernel().jt_fused_plane_attributes(int(idct_mode == "approx"), out)
+    if rc != 0:
+        raise RuntimeError(f"K1 attribute query failed: CUDA error {rc}")
+    return {"registers": out[0], "local_bytes": out[1]}
 
 
 def division_mismatches(lo: float = 2.0**-100, hi: float = 2.0**100,

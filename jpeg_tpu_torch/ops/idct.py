@@ -62,6 +62,25 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def idct_columns_plain(f: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Vertical pass of :func:`idct_blocks_plain`: t[y][u] = sum_v A[v][y]
+    F[v][u] over ``f [..., R, 8, C, 8]``, each product rounded, summed in
+    ascending v from the v = 0 product."""
+    t = a[0].view(8, 1, 1) * f[..., 0:1, :, :]
+    for k in range(1, 8):
+        t = t + a[k].view(8, 1, 1) * f[..., k:k + 1, :, :]
+    return t
+
+
+def idct_rows_plain(t: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Horizontal pass of :func:`idct_blocks_plain`: s[y][x] = sum_u
+    t[y][u] A[u][x], in ascending u from the u = 0 product."""
+    s = t[..., 0:1] * a[0]
+    for k in range(1, 8):
+        s = s + t[..., k:k + 1] * a[k]
+    return s
+
+
 def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor,
                       bf16: bool = False) -> torch.Tensor:
     """Separable 8x8 IDCT of dequantised blocks ``f [..., R, 8, C, 8]``
@@ -73,18 +92,14 @@ def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor,
     ``bf16=True`` is K1a's arithmetic, the TPU's one-pass bf16 product:
     ``f`` and ``t`` are rounded to bf16 before the pass that reads them
     (``a`` must be bf16-rounded already: :func:`dct_basis_1d_bf16`); every
-    product is then exact and the sums stay fp32, in the same order."""
+    product is then exact and the sums stay fp32, here in index order (K1a's
+    tensor cores sum the same products in their own order)."""
     if bf16:
         f = bf16_round(f)
-    t = a[0].view(8, 1, 1) * f[..., 0:1, :, :]
-    for k in range(1, 8):
-        t = t + a[k].view(8, 1, 1) * f[..., k:k + 1, :, :]
+    t = idct_columns_plain(f, a)
     if bf16:
         t = bf16_round(t)
-    s = t[..., 0:1] * a[0]
-    for k in range(1, 8):
-        s = s + t[..., k:k + 1] * a[k]
-    return s
+    return idct_rows_plain(t, a)
 
 
 def forward_dct_matrix(dtype=np.float32) -> np.ndarray:

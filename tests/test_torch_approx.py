@@ -79,9 +79,8 @@ def _bf16_jax(x):
 
 def test_bf16_basis_is_the_tpu_operand_and_mirror_symmetric():
     """K1a's basis is JAX's bf16 rounding of the float32 basis, and keeps
-    the mirror symmetry A[v][7-y] = (-1)^v A[v][y] bit for bit that the
-    kernel's shared products need (rounding to nearest even is symmetric
-    in sign)."""
+    the mirror symmetry A[v][7-y] = (-1)^v A[v][y] bit for bit (rounding to
+    nearest even is symmetric in sign)."""
     a = dct_basis_1d_bf16()
     np.testing.assert_array_equal(a, np.asarray(_bf16_jax(ref_basis())))
     sign = np.where(np.arange(8) % 2, -1.0, 1.0).astype(np.float32)[:, None]
@@ -93,9 +92,9 @@ def test_bf16_basis_is_the_tpu_operand_and_mirror_symmetric():
 
 
 def test_bf16_products_are_exact_in_fp32():
-    """K1a's kernel sums each term with one fused multiply-add where its
-    twin rounds the product and then the sum: the same bits exactly when
-    every product is exact in fp32. Each basis value times every finite
+    """K1a's tensor cores multiply bf16 operands exactly, and the twin's
+    rounded fp32 products are exact too, so the two differ only in the order
+    and rounding of their sums. Each basis value times every finite
     bf16 value from 2^-40 to 2^40 (both signs) is exact: fp32 product ==
     float64 product. The IDCT's operands lie inside that range: a nonzero
     dequantised value is an integer of at least 1 and below 2^23 (an int16

@@ -489,37 +489,79 @@ def _k1_batch(sub, cuda):
     return planes, qt, geom
 
 
+# K1a against its plain twin: the tensor cores sum the exact bf16 products
+# in their own order, a few fp32 ulps from the twin's sum rounded after each
+# term; rarely that moves a value of T across a bf16 rounding point or a
+# pixel across a u8 boundary, so K1a equals its twin to a tolerance: max
+# |diff| <= 2 u8, at most 1e-3 of the values differing, every frame
+# >= 70 dB. A wrong basis, rounding mode or pair packing changes percents
+# of the values.
+K1A_TWIN_MAX_DIFF = 2
+K1A_TWIN_MAX_SHARE = 1e-3
+K1A_TWIN_MIN_PSNR = 70.0
+
+
+def _psnr(a, b) -> float:
+    mse = float(((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+def _within_twin_tolerance(frames, twins):
+    """K1a's frames against the twin's: max |diff|, share of values
+    differing and every frame's PSNR inside the order-of-sums tolerance."""
+    diff = [np.abs(f.astype(int) - t.astype(int)) for f, t in zip(frames, twins)]
+    assert max(int(d.max()) for d in diff) <= K1A_TWIN_MAX_DIFF
+    assert (sum(int((d != 0).sum()) for d in diff)
+            <= K1A_TWIN_MAX_SHARE * sum(d.size for d in diff))
+    assert min(_psnr(f, t) for f, t in zip(frames, twins)) >= K1A_TWIN_MIN_PSNR
+
+
 @pytest.mark.parametrize("rounding", ["truncate", "round"])
 @pytest.mark.parametrize("sampling", K1_SAMPLINGS)
 def test_k1a_kernel_equals_plain_every_sampling(cuda, sampling, rounding):
-    """K1a, the approx tier: bf16 operands rounded where the twin rounds
-    them, sums in its order, so every pixel is the twin's; it counts its
-    own launches, not K1's."""
+    """K1a, the approx tier, on the tensor cores: within the order-of-sums
+    tolerance of its twin on every frame; it counts its own launches, not
+    K1's."""
     planes, qt, geom = _k1_batch(K1_SAMPLINGS[sampling], cuda)
     before, before_k1 = k1.LAUNCHES_APPROX.value, k1.LAUNCHES.value
     got = k1.fused_plane_decode(planes, qt, geom, rounding, "approx")
     assert k1.LAUNCHES_APPROX.value == before + 1
     assert k1.LAUNCHES.value == before_k1
-    assert torch.equal(got, k1.fused_plane_decode_plain(planes, qt, geom,
-                                                        rounding, "approx"))
+    want = k1.fused_plane_decode_plain(planes, qt, geom, rounding, "approx")
+    _within_twin_tolerance(list(got.cpu().numpy()), list(want.cpu().numpy()))
+
+
+@pytest.mark.parametrize("rounding", ["truncate", "round"])
+@pytest.mark.parametrize("sampling", K1_SAMPLINGS)
+def test_k1_still_equals_plain_beside_k1a(cuda, sampling, rounding):
+    """Exact K1, launched in the same process right after K1a on the same
+    inputs, stays bit-equal to its twin: the tensor-core tier shares the
+    kernel's code and leaves K1's arithmetic alone."""
+    planes, qt, geom = _k1_batch(K1_SAMPLINGS[sampling], cuda)
+    k1.fused_plane_decode(planes, qt, geom, rounding, "approx")
+    before = k1.LAUNCHES.value
+    got = k1.fused_plane_decode(planes, qt, geom, rounding)
+    assert k1.LAUNCHES.value == before + 1
+    assert torch.equal(got, k1.fused_plane_decode_plain(planes, qt, geom, rounding))
 
 
 def test_k1a_within_gate_of_k1_on_4k_frame(cuda):
     """docs/APPROX_QUALITY.md's gate against exact K1 on the main path's
-    frame: max |diff| <= 2 u8, >= 50 dB; and the same through
-    ``decode_bytes`` on the card and the CPU."""
+    frame: max |diff| <= 2 u8, >= 50 dB; and through ``decode_bytes`` on
+    the card within the order-of-sums tolerance of the CPU (the twin)."""
     data = _read("synth_3840x2160_s0_q85_rst1.jpg")
     approx = decode_bytes(data, path="fast", idct_mode="approx", device=cuda)
     exact = decode_bytes(data, path="fast", device=cuda)
     diff = np.abs(approx.astype(float) - exact.astype(float))
     assert diff.max() <= 2 and 10 * np.log10(255.0**2 / (diff**2).mean()) >= 50
-    np.testing.assert_array_equal(approx, decode_bytes(
-        data, path="fast", idct_mode="approx", device="cpu"))
+    _within_twin_tolerance([approx], [decode_bytes(
+        data, path="fast", idct_mode="approx", device="cpu")])
 
 
 def test_approx_corpus_on_card(cuda):
     """BatchedCorpusDecoder(idct_mode="approx") on the card, hybrid: each
-    frame equals the single-image approx decode on the CPU, through K1a."""
+    frame within the order-of-sums tolerance of the single-image approx
+    decode on the CPU, through K1a."""
     items = [_read(n) for n in SMALL] * 3
     before = k1.LAUNCHES_APPROX.value
     dec = BatchedCorpusDecoder(hybrid_device=True, device_batch=2,
@@ -527,7 +569,6 @@ def test_approx_corpus_on_card(cuda):
     got = dec.decode_all(items)
     dec.close()
     assert k1.LAUNCHES_APPROX.value > before
-    for r, data in zip(got, items):
-        assert r.ok
-        np.testing.assert_array_equal(r.rgb, decode_bytes(
-            data, path="fast", idct_mode="approx", device="cpu"))
+    assert all(r.ok for r in got)
+    _within_twin_tolerance([r.rgb for r in got], [decode_bytes(
+        data, path="fast", idct_mode="approx", device="cpu") for data in items])
