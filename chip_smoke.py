@@ -48,6 +48,24 @@ K1; the progressive and SOF9 frames share the baseline frames' K1 bucket)
 and through ``CorpusDecoder`` on both paths, each item held to its route's
 ``decode_bytes`` on the card.
 
+Two phases cover the rest of the format matrix. ``entropy_names`` runs
+the main path's claim (eight 4K frames, 1,080 lanes) through K3 under every
+device-entropy tier name of the JAX package (v1, v2, v3, the v2 batch and
+``window_runner_batch``), each launching K3 once and equal bit for bit to
+``decode_coefficients_device5_batch``, whose frames equal the C++ decoder's.
+``formats`` decodes 12-bit streams (4K SOF1 4:2:0, SOF9 and SOF2; SOF10 at
+512x384) through the compat route on the card (``decode_bytes``,
+``decode_file``, ``decode_batch``, the corpus decoders' inline route), u16
+within +-1 of the CPU run; reconstructs lossless 4K RGB differences with
+``torch.cumsum`` on the card (equal to the image and the CPU run) and decodes
+512x384 lossless streams end to end (equal to the CPU run,
+``native_decode_lossless``, ``reconstruct`` and the source, the frames
+counted by route); and runs the encoders that write these streams (host, as
+in the JAX package): each stream decodes back to its encoder's quantized
+coefficients, their C++ and Python routes write the same bytes, and the
+4K encodes, the 4K 12-bit decode (entropy and dense stage apart) and the
+4K ``reconstruct_device`` are timed on the host clock.
+
 Last, the command line (``cli_path``): ``jpeg_tpu_torch.cli.main`` in
 process on the main path's 64 items written to a temporary directory:
 ``corpus --batched --hybrid-device`` with a manifest (K3 and K1), the same
@@ -112,6 +130,8 @@ BATCH = 8        # frames per K1 / K2 / K3 check, and per device claim
 CORPUS_4K = 62   # 4K frames in the decode corpus (plus two small images)
 ROUND_TRIP = 32  # items in the encode -> decode corpus (the 8 streams, repeated)
 QUALITY = 85
+FORMATS_4K = (3840, 2160)     # the formats phase's frames (width, height)
+FORMATS_SMALL = (512, 384)    # its Python-coded and end-to-end lossless ones
 RESTART_4K = 240  # MCUs per restart interval: one per MCU row of a 4K frame
 K3_FRAMES = (1, 8, 32)  # 4K frames per timed K3 launch (135 lanes each)
 K3_INPUTS = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
@@ -568,6 +588,11 @@ def run() -> list[dict]:
                                  dev)
     del ck, lanes
 
+    # 4b. K3 under every device-entropy tier name, on the same claim.
+    t0 = time.perf_counter()
+    k3_names = entropy_names(plans4k, dev)
+    print(f"entropy-names phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 5. The main path: hybrid corpus decode.
     items = [read(SMALL_NO_RST), read(SMALL_RST[1])] + [
         read(FRAMES_4K[i % 2]) for i in range(CORPUS_4K)]
@@ -646,6 +671,11 @@ def run() -> list[dict]:
     k1_mixed_launches, k3_mixed_launches = every_stream_path()
     print(f"every-stream phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 11b. 12-bit and lossless decode, and the encoders that write them.
+    t0 = time.perf_counter()
+    formats(dev, card)
+    print(f"formats phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 12. K5 and K6 at the roofline instrument's shape.
     k5, k6 = idct_roofline(dev)
 
@@ -699,6 +729,7 @@ def run() -> list[dict]:
          "launches": k3_launches, "launches_round_trip": k3_rt_launches,
          "launches_mixed_corpus": k3_mixed_launches,
          "launches_cli_corpus": cli["k3"],
+         "launches_entropy_names": k3_names,
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          **k3_bnd, "library_ms": None, "frames": BATCH,
          "ms_by_frames": {str(f): t[0] for f, t in k3_time.items()},
@@ -1299,6 +1330,325 @@ def every_stream_path() -> tuple[int, int]:
               f"path='{path}', device='cuda') ({len(items)} items, "
               f"{wall:.3f} s)")
     return k1_launches, k3_launches
+
+
+def entropy_names(plans, dev) -> dict:
+    """K3 under every device-entropy tier name of the JAX package, on the
+    main path's claim (``plans``: BATCH 4K frames, a restart per MCU row,
+    1,080 lanes): the v1 names (``device_decode``), v2 and v3
+    (``device_decode2``), the v2 batch and ``window_runner_batch``, each
+    with the K3 counter set to 0 just before it and read just after, each
+    bit for bit with ``decode_coefficients_device5_batch`` on the card,
+    whose frames equal the C++ decoder's blocks. Returns K3's launches per
+    name."""
+    import torch
+
+    from jpeg_tpu_torch import runtime
+    from jpeg_tpu_torch.entropy import device_decode as v1
+    from jpeg_tpu_torch.entropy import device_decode2 as v2
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.entropy import device_window as v5
+
+    want, want_err = v5.decode_coefficients_device5_batch(plans, dev,
+                                                          to_host=False)
+    check(not bool(want_err.any()) and all(
+        np.array_equal(w.cpu().numpy(), runtime.native_decode_coefficients(p))
+        for w, p in zip(want, plans)),
+          f"entropy names: decode_coefficients_device5_batch on {len(plans)} "
+          f"4K frames ({want_err.numel()} lanes) == C++ "
+          "native_decode_coefficients, bit for bit")
+    lanes0 = len(plans[0].segments)
+
+    def window(ps):
+        run, args, meta = v5.window_runner_batch(ps, dev)
+        check(meta[0] == max(s.mcu_count for p in ps for s in p.segments)
+              and meta[1] == want_err.numel() and len(meta[2]) == len(ps)
+              and int(meta[3].sum()) == 8 * sum(
+                  s.byte_end - s.byte_start for p in ps for s in p.segments),
+              "window_runner_batch meta: (max_mcus, S, lane_base, bitend)")
+        coeffs, err = run(*args)
+        b = k3.prepare_lane_batch(ps)
+        return [coeffs[r0 : r0 + n] for r0, n in b.images], err
+
+    names = {
+        "device_decode.decode_coefficients_device":
+            lambda: v1.decode_coefficients_device(plans[0], device=dev),
+        "device_decode.decode_coefficients_device_batch":
+            lambda: v1.decode_coefficients_device_batch(plans, device=dev),
+        "device_decode2.decode_coefficients_device2":
+            lambda: v2.decode_coefficients_device2(plans[0], device=dev),
+        "device_decode2.decode_coefficients_device3":
+            lambda: v2.decode_coefficients_device3(plans[0], device=dev),
+        "device_decode2.decode_coefficients_device2_batch":
+            lambda: v2.decode_coefficients_device2_batch(plans, device=dev),
+        "device_window.window_runner_batch": lambda: window(plans),
+    }
+    launches = {}
+    for name, call in names.items():
+        k3.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coeffs, err = call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches[name] = k3.LAUNCHES.value
+        if not isinstance(coeffs, list):
+            coeffs = [coeffs]
+        n = len(coeffs)
+        same = (torch.equal(err, want_err[: lanes0 * n] if n == 1 else want_err)
+                and all(torch.equal(c, w) for c, w in zip(coeffs, want)))
+        check(launches[name] == 1 and same,
+              f"{name}: K3 launched {launches[name]} time(s), {n} 4K "
+              f"frame(s) == decode_coefficients_device5_batch bit for bit "
+              f"({wall:.3f} ms host clock, tables and lanes prepared "
+              "included)")
+    return launches
+
+
+def stream_blocks(comp_blocks_zz, geom) -> np.ndarray:
+    """An encoder's per-component quantized zigzag blocks [rows, cols, 64]
+    -> [total_blocks, 64] in MCU stream order (the decoder's layout)."""
+    my, mx = geom.mcus_y, geom.mcus_x
+    per = [b.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4)
+           .reshape(my * mx, v * h, 64)
+           for b, (h, v) in zip(comp_blocks_zz, geom.sampling)]
+    return np.concatenate(per, axis=1).reshape(-1, 64)
+
+
+def twelve_bit_image(width: int, height: int, seed: int) -> np.ndarray:
+    """A seeded 12-bit RGB image: ``synthetic_image`` << 4 with its low
+    four bits seeded too."""
+    rng = np.random.default_rng(seed)
+    img = synthetic_image(width, height, seed).astype(np.uint16) << 4
+    return img | rng.integers(0, 16, img.shape).astype(np.uint16)
+
+
+def formats(dev, card: str) -> dict:
+    """The rest of the format matrix on the card: 12-bit decode through the
+    compat route (``decode_bytes``, ``decode_file``, ``decode_batch``, the
+    corpus decoders' inline route) with u16 out, within +-1 of the CPU run;
+    lossless (SOF3): ``reconstruct_device`` at 4K on seeded differences,
+    equal to the image and to the CPU run, and ``decode_bytes`` of 512x384
+    streams equal to the CPU run, to ``native_decode_lossless``, to
+    ``reconstruct`` and to the source; the new encoders (host, as in the JAX
+    package), their bytes equal on their C++ and Python routes and each
+    stream decoding back to its own quantized coefficients. Prints the
+    lossless frames' routes and the host-clock times beside ``card``."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from jpeg_tpu_torch import (
+        BatchedCorpusDecoder,
+        CorpusDecoder,
+        decode_batch,
+        decode_bytes,
+        decode_file,
+        encode_cmyk,
+        encode_rgb,
+        encode_rgb_progressive,
+        parse_jpeg,
+        runtime,
+    )
+    from jpeg_tpu_torch.entropy import lossless
+    from jpeg_tpu_torch.entropy import progressive_encode as pe
+    from jpeg_tpu_torch.models import decoder as dec
+    from jpeg_tpu_torch.models.encoder import _forward_transform
+
+    times = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[label] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    # The narrowing the 12-bit and lossless routes end with, on the card.
+    x = torch.arange(-3, 4100, 7, dtype=torch.int32, device=dev)
+    u = x.clamp(0, 4095).to(torch.uint16)
+    check(u.dtype == torch.uint16 and np.array_equal(
+        u.cpu().numpy(), np.clip(x.cpu().numpy(), 0, 4095).astype(np.uint16)),
+          ".to(torch.uint16) on the card == numpy's narrowing")
+
+    # 12-bit streams: 4K SOF1 (4:2:0), SOF9 and SOF2 (C++ encoders), SOF10
+    # at 512x384 (the Python QM coder, as in the JAX package).
+    img4k = twelve_bit_image(*FORMATS_4K, seed=20)
+    kw = dict(quality=QUALITY, subsampling=(2, 2))
+    streams = {
+        "SOF1 4K": timed("encode_rgb(precision=12) 4K",
+                         lambda: encode_rgb(img4k, precision=12, **kw)),
+        "SOF9 4K": timed("encode_rgb(precision=12, arithmetic=True) 4K",
+                         lambda: encode_rgb(img4k, precision=12,
+                                            arithmetic=True, **kw)),
+        "SOF2 4K": timed("encode_rgb_progressive(precision=12) 4K",
+                         lambda: encode_rgb_progressive(img4k, precision=12,
+                                                        **kw)),
+    }
+    img512 = twelve_bit_image(*FORMATS_SMALL, seed=21)
+    streams["SOF10 512x384"] = timed(
+        "encode_rgb_progressive(precision=12, arithmetic=True) 512x384",
+        lambda: encode_rgb_progressive(img512, precision=12, arithmetic=True,
+                                       **kw))
+    img8 = synthetic_image(*FORMATS_4K, seed=22)
+    prog8 = timed("encode_rgb_progressive 4K",
+                  lambda: encode_rgb_progressive(img8, **kw))
+    # Each stream decodes back to the encoder's own quantized coefficients.
+    blocks12 = _forward_transform(img4k, QUALITY, (2, 2), False, 12)[0]
+    blocks512 = _forward_transform(img512, QUALITY, (2, 2), False, 12)[0]
+    blocks8 = _forward_transform(img8, QUALITY, (2, 2), False, 8)[0]
+    for name, data, blocks in [
+            *((n, streams[n], blocks12) for n in ("SOF1 4K", "SOF9 4K",
+                                                  "SOF2 4K")),
+            ("SOF10 512x384", streams["SOF10 512x384"], blocks512),
+            ("8-bit SOF2 4K", prog8, blocks8)]:
+        plan = parse_jpeg(data)
+        got = dec.decode_coefficients_host(plan)
+        check(np.array_equal(got, stream_blocks(blocks,
+                                                dec.PipelineGeometry.of(plan))),
+              f"{name} ({len(data)} bytes, precision {plan.precision}): "
+              "decodes back to the encoder's quantized coefficients")
+    # Their C++ and Python routes write the same bytes (at 512x384).
+    small8 = synthetic_image(*FORMATS_SMALL, seed=23)
+    b12 = _forward_transform(img512, QUALITY, (2, 2), False, 12)
+    check(encode_rgb(img512, precision=12, **kw)
+          == encode_rgb(img512, precision=12, engine="python", **kw)
+          and encode_rgb(small8, arithmetic=True, restart_interval_mcus=4, **kw)
+          == encode_rgb(small8, arithmetic=True, restart_interval_mcus=4,
+                        engine="python", **kw),
+          "encode_rgb(precision=12) and encode_rgb(arithmetic=True): C++ "
+          "route == Python route, byte for byte (512x384)")
+    nat = runtime.native_encode_progressive_scans(
+        b12[0], b12[1], b12[5], b12[6], *FORMATS_SMALL, restart_interval=5)
+    py = pe.encode_progressive_scans(b12[0], b12[1], b12[5], b12[6],
+                                     *FORMATS_SMALL, restart_interval=5)
+    check([s["data"] for s in nat] == [s["data"] for s in py],
+          f"native_encode_progressive_scans == encode_progressive_scans, "
+          f"{len(nat)} scans byte for byte (12-bit 512x384, restarts)")
+    cmyk = np.random.default_rng(24).integers(0, 256, (192, 256, 4), np.uint8)
+    for ycck in (False, True):
+        data = encode_cmyk(cmyk, arithmetic=True, ycck=ycck,
+                           restart_interval_mcus=6)
+        plan = parse_jpeg(data)
+        got = dec.decode_coefficients_host(plan).copy()
+        q = parse_jpeg(encode_cmyk(cmyk, ycck=ycck))
+        check(plan.arith_code and np.array_equal(
+            got, dec.decode_coefficients_host(q)),
+              f"encode_cmyk(arithmetic=True, ycck={ycck}): SOF9 decoding to "
+              "the coefficients of the Huffman stream (the same transform)")
+
+    # 12-bit decode on the card against the CPU run.
+    for name, data in streams.items():
+        plan = parse_jpeg(data)
+        got = decode_bytes(data, device=dev)
+        want = decode_bytes(data, device="cpu")
+        ok, n = within_one(got, want)
+        check(ok and got.dtype == np.uint16 and got.max() > 255,
+              f"12-bit {name}: decode_bytes(device='cuda') {got.shape} u16 "
+              f"within +-1 of device='cpu', {n} of {got.size} values differ")
+        fast = decode_bytes(data, path="fast", device=dev)
+        check(np.array_equal(fast, got),
+              f"12-bit {name}: path='fast' takes the compat route")
+    data = streams["SOF1 4K"]
+    plan = parse_jpeg(data)
+    entropy = host_ms(lambda: dec.decode_coefficients_host(plan))
+    coeffs = dec.decode_coefficients_host(plan).copy()
+    dense = host_ms(lambda: dec.decode_plan(plan, coefficients=coeffs,
+                                            device=dev))
+    times["12-bit 4K decode: entropy (C++)"] = entropy
+    times["12-bit 4K decode: dense stage (H2D, matmul, colour, D2H)"] = dense
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "twelve.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        check(np.array_equal(decode_file(path, device=dev),
+                             decode_bytes(data, device=dev)),
+              "12-bit SOF1 4K: decode_file == decode_bytes on the card")
+    second = parse_jpeg(encode_rgb(twelve_bit_image(*FORMATS_4K, seed=25),
+                                   precision=12, **kw))
+    geom = dec.PipelineGeometry.of(plan)
+    check(dec.PipelineGeometry.of(second) == geom and geom.precision == 12,
+          "two 4K 12-bit frames share one geometry")
+    batch = decode_batch(
+        np.stack([coeffs, dec.decode_coefficients_host(second).copy()]),
+        np.stack([dec.plan_matrices(plan), dec.plan_matrices(second)]),
+        geom, device=dev).cpu().numpy()
+    ok, n = within_one(batch[0], decode_bytes(data, device=dev))
+    check(ok and batch.dtype == np.uint16,
+          f"decode_batch of two 4K 12-bit frames: u16, frame 0 within +-1 "
+          f"of decode_bytes, {n} values differ")
+    del batch, coeffs
+
+    # Lossless: reconstruct_device at 4K on seeded differences (predictors
+    # 1 and 2), then 512x384 streams end to end.
+    routes = {"cumsum on the card": 0, "C++ jt_decode_lossless": 0}
+    src = synthetic_image(*FORMATS_4K, seed=26)
+    for predictor in (1, 2):
+        meta = dataclasses.replace(
+            parse_jpeg(lossless.encode_lossless(src[:16, :16],
+                                                predictor=predictor)),
+            width=FORMATS_4K[0], height=FORMATS_4K[1])
+        diffs = lossless.prediction_differences(
+            src.astype(np.int32), predictor, 128).reshape(src.shape)
+        got = lossless.reconstruct_device(meta, diffs, dev)
+        check(got.dtype == torch.uint16 and np.array_equal(
+            got.cpu().numpy(), src) and np.array_equal(
+            got.cpu().numpy(),
+            lossless.reconstruct_device(meta, diffs, "cpu").numpy()),
+              f"reconstruct_device, predictor {predictor}, 4K RGB on the "
+              "card: u16 == the image == the CPU run, bit for bit")
+        times[f"reconstruct_device 4K predictor {predictor} (H2D, cumsum, "
+              "D2H)"] = host_ms(lambda: lossless.reconstruct_device(
+                  meta, diffs, dev).cpu())
+    small = synthetic_image(*FORMATS_SMALL, seed=27)
+    for predictor, ri in ((1, 0), (4, FORMATS_SMALL[0] * 8)):
+        data = lossless.encode_lossless(small, predictor=predictor,
+                                        restart_interval=ri)
+        plan = parse_jpeg(data)
+        route = ("cumsum on the card" if lossless.cumsum_takes(plan)
+                 else "C++ jt_decode_lossless")
+        routes[route] += 1
+        got = decode_bytes(data, device=dev)
+        oracle = lossless.reconstruct(plan, lossless.decode_diffs(plan))
+        check(np.array_equal(got, decode_bytes(data, device="cpu"))
+              and np.array_equal(got, runtime.native_decode_lossless(plan))
+              and np.array_equal(got, oracle) and np.array_equal(got, small),
+              f"lossless predictor {predictor}, restart interval {ri} "
+              f"({route}): decode_bytes on the card == device='cpu' == "
+              "native_decode_lossless == reconstruct == the source")
+    auto = lossless.encode_lossless(small, predictor="auto")
+    check(np.array_equal(decode_bytes(auto, device=dev), small),
+          f"encode_lossless(predictor='auto') (predictor "
+          f"{parse_jpeg(auto).predictor}) round-trips to the input")
+
+    # The corpus decoders' inline route: 12-bit and lossless items beside
+    # 8-bit ones, each equal to its decode_bytes on the card.
+    tiny = synthetic_image(128, 96, seed=28)
+    items = [streams["SOF10 512x384"],
+             encode_rgb(img512, precision=12, **kw),
+             encode_rgb(img512, precision=12, arithmetic=True, **kw),
+             lossless.encode_lossless(tiny, predictor=2),
+             lossless.encode_lossless(tiny, predictor=6, restart_interval=50),
+             read(SMALL_RST[0]), read(SMALL_RST[1]), read(SMALL_NO_RST)]
+    compat = [decode_bytes(d, device=dev) for d in items]
+    fast = [decode_bytes(d, path="fast", device=dev) for d in items]
+    for label, decoder, want in [
+            ("BatchedCorpusDecoder", BatchedCorpusDecoder(device=dev), fast),
+            ("CorpusDecoder(path='compat')", CorpusDecoder(device=dev),
+             compat),
+            ("CorpusDecoder(path='fast')",
+             CorpusDecoder(path="fast", device=dev), fast)]:
+        res = decoder.decode_all(items)
+        decoder.close()
+        check(all(r.ok and r.rgb.dtype == w.dtype and np.array_equal(r.rgb, w)
+                  for r, w in zip(res, want)),
+              f"{label}: 12-bit and lossless items decoded inline, every item "
+              "== its decode_bytes on the card")
+    print(f"lossless frames by route: {routes}", flush=True)
+    for label, ms in times.items():
+        print(f"formats: {label}: {ms:.3f} ms (host clock; {card})",
+              flush=True)
+    return {"routes": routes, "times_ms": times}
 
 
 def idct_roofline(dev) -> tuple[dict, dict]:

@@ -1,10 +1,10 @@
 """jpeg_tpu_torch: the PyTorch + CUDA port of jpeg_tpu for NVIDIA Hopper.
 
 A second package beside ``jpeg_tpu`` (the JAX reference, which it never
-imports). It decodes every 8-bit DCT stream the JAX package decodes
-(baseline or progressive, Huffman or arithmetic, gray, YCbCr, RGB-direct,
-CMYK, YCCK), encodes baseline Huffman, and each of the JAX package's Pallas
-kernels has a Hopper kernel.
+imports). It decodes every stream the JAX package decodes (baseline,
+extended or progressive DCT at 8 and 12 bits, Huffman or arithmetic, gray,
+YCbCr, RGB-direct, CMYK, YCCK, and lossless SOF3), encodes all of them, and
+each of the JAX package's Pallas kernels has a Hopper kernel.
 
 The hybrid corpus decode:
 
@@ -12,8 +12,9 @@ The hybrid corpus decode:
   (``runtime``: the port's copy of the JAX package's C++ library, bound
   with ctypes);
 - K3, the lane-per-restart-segment Huffman kernel
-  (``entropy/device_huffman.py``, ``csrc/huffman_lanes.cu``; the JAX
-  package's names in ``entropy/device_window.py``);
+  (``entropy/device_huffman.py``, ``csrc/huffman_lanes.cu``), under every
+  device-entropy tier name of the JAX package: ``entropy/device_window.py``
+  (v5), ``device_decode.py`` (v1) and ``device_decode2.py`` (v2, v3);
 - K1, the fused dequant + IDCT + upsample + colour kernel
   (``ops/fused_plane.py``, ``csrc/fused_plane.cu``);
 - the corpus decoders (``parallel/pipeline.py``: ``BatchedCorpusDecoder``
@@ -22,8 +23,11 @@ The hybrid corpus decode:
 
 The encoder (``models/encoder.py``):
 
-- ``encode_rgb``: forward transform in NumPy on the host, as in the JAX
-  package, then the C++ entropy encoder (``runtime``) or the Python packer;
+- ``encode_rgb`` (8 or 12 bits, Huffman or arithmetic),
+  ``encode_rgb_progressive`` and ``encode_cmyk``: forward transform in
+  NumPy on the host, as in the JAX package, then the C++ entropy encoder
+  (``runtime``) or the Python one; ``entropy/lossless.py::encode_lossless``
+  writes SOF3;
 - ``encode_rgb_device``: K2, the fused colour + box mean + forward DCT +
   quantise kernel (``ops/fused_encode.py``, ``csrc/fused_encode.cu``;
   batched by ``parallel/batch.py::encode_batch_device``), then the C++
@@ -49,6 +53,7 @@ from jpeg_tpu_torch.models.encoder import (  # noqa: F401
     encode_cmyk,
     encode_rgb,
     encode_rgb_device,
+    encode_rgb_progressive,
 )
 from jpeg_tpu_torch.parallel.batch import decode_batch  # noqa: F401
 from jpeg_tpu_torch.parallel.pipeline import (  # noqa: F401

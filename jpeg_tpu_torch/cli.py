@@ -13,10 +13,10 @@ Differences from the JAX CLI:
 - ``encode`` reads a ``.ppm`` input itself (``io/ppm.py``); other inputs,
   ``--color cmyk|ycck`` and ``diff`` need Pillow, imported inside the
   command, and a missing Pillow is an error naming it;
-- options whose ``ROADMAP.md`` item is still open raise
-  ``NotImplementedError`` naming it: ``--precision 12``, ``--progressive``
-  and ``--arithmetic`` (item 3c), ``--lossless`` and ``--predictor`` (item
-  7), ``--distributed`` (item 8).
+- ``encode --precision 12`` reads a 16-bit ``.ppm`` (maxval 4095) or
+  promotes 8-bit samples (``<< 4``), as the JAX CLI does;
+- ``corpus --distributed`` raises ``NotImplementedError`` naming its
+  ``ROADMAP.md`` item (8).
 """
 
 from __future__ import annotations
@@ -66,15 +66,27 @@ def cmd_decode(args) -> int:
     return 0
 
 
-def _read_rgb(path: str):
-    """[H, W, 3] u8 of an image file: PPM through ``read_ppm``, any other
-    format through Pillow."""
+def _read_rgb(path: str, precision: int = 8):
+    """[H, W, 3] samples of an image file at ``precision``: PPM through
+    ``read_ppm``, any other format through Pillow. At 12 bits a PPM is
+    maxval 4095 or 8-bit, and 8-bit samples are promoted (``<< 4``), as in
+    the JAX CLI."""
     import numpy as np
 
     if path.lower().endswith(".ppm"):
         from jpeg_tpu_torch.io.ppm import read_ppm
 
         img, maxval = read_ppm(path, return_maxval=True)
+        if precision == 12:
+            if img.dtype == np.uint8:
+                return img.astype(np.uint16) << 4
+            if maxval != 4095:
+                # A maxval-65535 PPM would feed samples past the 12-bit
+                # level shift and magnitude categories: a corrupt stream.
+                raise SystemExit(
+                    f"--precision 12 needs a maxval-4095 (or 8-bit) PPM; "
+                    f"{path} has maxval {maxval}")
+            return img
         if maxval != 255:
             raise SystemExit(f"--precision 8 needs a maxval-255 PPM; {path} "
                              f"has maxval {maxval}")
@@ -82,14 +94,18 @@ def _read_rgb(path: str):
     from jpeg_tpu_torch.io.corpus import pil_image
 
     Image = pil_image(f"encoding {path} (not a .ppm)")
-    return np.asarray(Image.open(path).convert("RGB"))
+    img = np.asarray(Image.open(path).convert("RGB"))
+    return img.astype(np.uint16) << 4 if precision == 12 else img
 
 
 def cmd_encode(args) -> int:
     import numpy as np
 
-    from jpeg_tpu_torch.models.decoder import not_ported
-    from jpeg_tpu_torch.models.encoder import encode_cmyk, encode_rgb
+    from jpeg_tpu_torch.models.encoder import (
+        encode_cmyk,
+        encode_rgb,
+        encode_rgb_progressive,
+    )
 
     if args.color in ("cmyk", "ycck"):
         from jpeg_tpu_torch.io.corpus import pil_image
@@ -103,19 +119,28 @@ def cmd_encode(args) -> int:
             f.write(data)
         print(f"{args.input} -> {args.output} ({len(data)} bytes)")
         return 0
-    if args.precision == 12:
-        raise not_ported("12-bit encode (--precision 12)", "3c")
-    if args.lossless or args.predictor is not None:
-        raise not_ported("lossless (SOF3) encode (--lossless, --predictor)", 7)
-    if args.progressive:
-        raise not_ported("progressive encode (--progressive)", "3c")
-    if args.arithmetic:
-        raise not_ported("arithmetic-coded encode (--arithmetic)", "3c")
-    img = _read_rgb(args.input)
+    img = _read_rgb(args.input, args.precision)
     sub = {"444": (1, 1), "422": (2, 1), "420": (2, 2)}[args.subsampling]
-    data = encode_rgb(img, quality=args.quality, subsampling=sub,
-                      restart_interval_mcus=args.restart_interval,
-                      optimize=args.optimize)
+    if args.lossless:
+        from jpeg_tpu_torch.entropy.lossless import encode_lossless
+
+        data = encode_lossless(img, predictor=args.predictor,
+                               precision=args.precision,
+                               restart_interval=args.restart_interval)
+        with open(args.output, "wb") as f:
+            f.write(data)
+        print(f"{args.input} -> {args.output} ({len(data)} bytes, lossless)")
+        return 0
+    if args.progressive:
+        data = encode_rgb_progressive(img, quality=args.quality,
+                                      subsampling=sub,
+                                      arithmetic=args.arithmetic,
+                                      precision=args.precision)
+    else:
+        data = encode_rgb(img, quality=args.quality, subsampling=sub,
+                          restart_interval_mcus=args.restart_interval,
+                          optimize=args.optimize, arithmetic=args.arithmetic,
+                          precision=args.precision)
     with open(args.output, "wb") as f:
         f.write(data)
     print(f"{args.input} -> {args.output} ({len(data)} bytes)")
@@ -310,20 +335,16 @@ def main(argv=None) -> int:
     e.add_argument("--optimize", action="store_true",
                    help="per-image optimal Huffman tables (Annex K.2)")
     e.add_argument("--precision", type=int, choices=[8, 12], default=8,
-                   help="sample precision; 12 is not ported yet "
-                        "(ROADMAP.md item 3c)")
+                   help="sample precision (12 = SOF1/SOF9 extended; input "
+                        "is a 16-bit .ppm or promoted 8-bit)")
     e.add_argument("--arithmetic", action="store_true",
-                   help="QM arithmetic entropy coding (SOF9/SOF10); not "
-                        "ported yet (item 3c)")
+                   help="QM arithmetic entropy coding (SOF9/SOF10)")
     e.add_argument("--lossless", action="store_true",
-                   help="SOF3 lossless (T.81 Annex H); not ported yet "
-                        "(item 7)")
-    e.add_argument("--predictor", type=int, choices=range(1, 8), default=None,
-                   help="lossless predictor selection (T.81 H.1.2.1); not "
-                        "ported yet (item 7)")
+                   help="SOF3 lossless (T.81 Annex H)")
+    e.add_argument("--predictor", type=int, choices=range(1, 8), default=1,
+                   help="lossless predictor selection (T.81 H.1.2.1)")
     e.add_argument("--progressive", action="store_true",
-                   help="progressive (SOF2) output; not ported yet "
-                        "(item 3c)")
+                   help="progressive (SOF2) output")
     e.add_argument("--color", choices=["auto", "cmyk", "ycck"], default="auto",
                    help="cmyk/ycck = 4-component Adobe APP14 output")
     e.set_defaults(fn=cmd_encode)

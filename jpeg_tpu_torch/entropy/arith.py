@@ -15,8 +15,9 @@ swallows 0xFF runs, keeps 0xFF for a stuffed zero, and supplies zeros once
 a real marker (or the segment end) is reached.
 
 Copy of ``jpeg_tpu/entropy/arith.py``, whole: the port's decoder runs its
-two decoders with ``engine="oracle"``; its encoders are not wired to the
-port's encoder yet (``ROADMAP.md``, 'Still to port' item 3c).
+two decoders with ``engine="oracle"``; its encoders write the port's SOF9
+streams with ``engine="python"`` and ``encode_cmyk(arithmetic=True)``, and
+every SOF10 stream (``encode_rgb_progressive(arithmetic=True)``).
 """
 
 from __future__ import annotations

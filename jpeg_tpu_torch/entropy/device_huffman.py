@@ -424,9 +424,3 @@ def decode_prepared_batch(batch: LaneBatch, device="cuda"):
                                len(batch.lane_start), batch.total_rows)
     return [coeffs[r0 : r0 + n] for r0, n in batch.images], err
 
-
-def decode_coefficients_device_batch(plans: list, device="cuda"):
-    """Entropy-decode a batch of plans on ``device``; see
-    :func:`decode_prepared_batch`. Raises ``ValueError`` before launching
-    when the plans do not share slot structure and tables."""
-    return decode_prepared_batch(prepare_lane_batch(plans), device)

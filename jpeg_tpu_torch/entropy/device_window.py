@@ -1,8 +1,9 @@
 """K3 under the JAX package's names: the windowed device entropy tier.
 
-Counterpart of ``decode_coefficients_device5_batch`` and
-``decode_coefficients_device5`` in ``jpeg_tpu/entropy/device_window.py``,
-the module that holds K3's Pallas kernel. Both are thin wrappers over
+Counterpart of ``decode_coefficients_device5_batch``,
+``decode_coefficients_device5`` and ``window_runner_batch`` in
+``jpeg_tpu/entropy/device_window.py``, the module that holds K3's Pallas
+kernel. All three are thin wrappers over
 :func:`jpeg_tpu_torch.entropy.device_huffman.prepare_lane_batch` and
 :func:`~jpeg_tpu_torch.entropy.device_huffman.decode_prepared_batch`, where
 the kernel (``csrc/huffman_lanes.cu``) and its plain twin live; the JAX
@@ -17,6 +18,8 @@ whose plans differ in Huffman tables or slot structure raises
 """
 
 from __future__ import annotations
+
+import torch
 
 from jpeg_tpu_torch.entropy import device_huffman
 
@@ -42,3 +45,31 @@ def decode_coefficients_device5(plan, device="cuda", to_host: bool = True):
     coeffs, err = decode_coefficients_device5_batch([plan], device, to_host)
     return coeffs[0], err
 
+
+def window_runner_batch(plans: list, device="cuda"):
+    """Prepare a batch for K3 -> ``(run, args, meta)``: ``run(*args)``
+    launches K3 on the prepared lanes (on the current stream, not
+    synchronised) and returns ``(coeffs [rows, 64] int32, err [S] bool)``,
+    each lane's blocks in consecutive rows. ``meta`` is ``(max_mcus, S,
+    lane_base, bitend)`` as in the JAX package: the most MCUs a lane holds,
+    the lane count, each plan's first lane, and each lane's segment length
+    in bits (an int32 tensor on ``device``).
+
+    The JAX runner splits the decode into ``K`` chained launches of ``G``
+    MCUs, each over a window of every lane's words sized for the TPU's
+    scoped VMEM, and its ``meta`` ends with ``K, G``. K3 has no window: one
+    launch walks each lane whole (as ``K = 1``, ``G = max_mcus`` would), so
+    those two fields are left out. Same homogeneity contract as
+    :func:`decode_coefficients_device5_batch` (``ValueError`` before any
+    launch)."""
+    batch = device_huffman.prepare_lane_batch(plans)
+    lane_base, base = [], 0
+    for p in plans:
+        lane_base.append(base)
+        base += len(p.segments)
+    max_mcus = max(s.mcu_count for p in plans for s in p.segments)
+    bitend = torch.as_tensor(batch.lane_len * 8, device=device)
+    args = (device_huffman.lane_tensors(batch, device), len(batch.lane_start),
+            batch.total_rows)
+    return (device_huffman.decode_lanes, args,
+            (max_mcus, len(batch.lane_start), lane_base, bitend))

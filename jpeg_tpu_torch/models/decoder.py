@@ -1,8 +1,9 @@
 """The decode model: JPEG bytes -> RGB u8, through the compat or the fast path.
 
-Counterpart of ``jpeg_tpu/models/decoder.py`` for 8-bit DCT streams:
-baseline and progressive, Huffman or arithmetic coded, in gray, YCbCr,
-RGB-direct, CMYK or YCCK, with its defaults:
+Counterpart of ``jpeg_tpu/models/decoder.py`` for every stream it
+decodes: baseline, extended and progressive DCT at 8 and 12 bits, Huffman or
+arithmetic coded, in gray, YCbCr, RGB-direct, CMYK or YCCK, and lossless
+(SOF3), with its defaults:
 
 - the compat path (``path="compat"``, the default of :func:`decode_bytes`
   and the route of :func:`decode_file`): C++ entropy decode into
@@ -11,6 +12,9 @@ RGB-direct, CMYK or YCCK, with its defaults:
   dequant + unzigzag + IDCT matrix (``torch.matmul``, TF32 refused),
   assembly, replicate or fancy upsample and colour, or the level-shifted
   planes themselves (``color_space="ycbcr"``) (:func:`decode_plan`);
+  12-bit frames come out as ``uint16`` (level shift 2048, clamp 4095);
+  lossless frames are their samples (``entropy/lossless.py``), ``uint8`` up
+  to 8 bits and ``uint16`` above, gray replicated to three channels;
 - the fast path (``path="fast"``, and the corpus decoder's route) for gray
   and YCbCr streams: entropy decode into int16 coefficient planes on the
   host (C++ runtime, every entropy coding) or on the device (K3 +
@@ -18,17 +22,14 @@ RGB-direct, CMYK or YCCK, with its defaults:
   for dequant, IDCT, upsample and colour. It is within +-1 u8 of the compat
   path. ``idct_mode="approx"`` runs K1a instead, K1 with the IDCT's operands
   rounded to bf16 as the TPU's DEFAULT precision rounds them (within 2 u8
-  and 50 dB of exact, ``docs/APPROX_QUALITY.md``). Other colour models take
-  the compat path, as in the JAX package.
+  and 50 dB of exact, ``docs/APPROX_QUALITY.md``). Other colour models,
+  12-bit and lossless frames take the compat path, as in the JAX package.
 
 The host entropy stage runs the C++ runtime (``engine="auto"`` or
 ``"native"``) or the NumPy reference decoders (``engine="oracle"``,
 ``entropy/oracle.py``, ``progressive.py``, ``arith.py``). ``"auto"`` does not
 fall back to the oracle when the runtime fails to build, as the JAX package
 does: the build error raises.
-
-Lossless and 12-bit streams raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from jpeg_tpu_torch.io.container import DecodePlan, parse_jpeg
 from jpeg_tpu_torch.ops.color import (
     cmyk_to_rgb,
     grayscale_to_rgb,
+    level_shift,
     quantize_samples,
     rgb_direct,
     ycbcr_to_rgb,
@@ -122,20 +124,13 @@ def not_ported(what: str, item: int | str):
         f"(ROADMAP.md, 'Still to port' item {item})")
 
 
-def check_ported(plan: DecodePlan) -> None:
-    """Raise ``NotImplementedError`` for streams off the ported slices: the
-    port decodes every 8-bit DCT stream, not lossless or 12-bit ones."""
-    if plan.lossless:
-        raise not_ported("lossless (SOF3) decode", 7)
-    if plan.precision != 8:
-        raise not_ported(f"{plan.precision}-bit decode", "3b")
-
-
 def fast_path_takes(plan: DecodePlan) -> bool:
-    """Whether K1 decodes the plan's colour: gray or YCbCr. K1 bakes in the
-    YCbCr matrix and writes three channels, so RGB-direct, CMYK and YCCK
-    streams take the compat path, as in the JAX package."""
-    return plan.color_model in ("ycbcr", "gray")
+    """Whether K1 decodes the plan: 8-bit DCT samples in gray or YCbCr. K1
+    bakes in the YCbCr matrix and writes three u8 channels from int16
+    planes, so RGB-direct, CMYK, YCCK, 12-bit and lossless streams take the
+    compat path, as in the JAX package (``decode_plan_fast``)."""
+    return (plan.color_model in ("ycbcr", "gray") and not plan.lossless
+            and plan.precision == 8)
 
 
 def coefficient_planes_from_blocks(coeffs: torch.Tensor,
@@ -187,7 +182,6 @@ def decode_coefficients_host(plan: DecodePlan, engine: str = "auto") -> np.ndarr
     ``decode_progressive_coefficients_arith``. A baseline Huffman plan's
     array from the runtime is its per-thread scratch buffer: consume or copy
     it before this thread decodes another image of the same block count."""
-    check_ported(plan)
     if engine not in ("auto", "native", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "oracle":
@@ -239,11 +233,13 @@ def _pipeline(coeffs: torch.Tensor, matrices: torch.Tensor,
               upsample: str = "replicate",
               color_space: str = "rgb") -> torch.Tensor:
     """coeffs [..., total_blocks, 64] int32 (zigzag), matrices [...,
-    n_comp, 64, 64] f32, on one device -> RGB [..., H, W, 3] u8 there. Per
-    component one product at full fp32 (one for the whole batch), then
-    assembly, upsample, crop and colour. ``color_space="ycbcr"`` returns the
+    n_comp, 64, 64] f32, on one device -> RGB [..., H, W, 3] there, u8 at
+    8-bit precision and u16 at 12-bit (``geom.precision``). Per component
+    one product at full fp32 (one for the whole batch), then assembly,
+    upsample, crop and colour. ``color_space="ycbcr"`` returns the
     level-shifted full-resolution planes instead: 3 channels for gray (the
-    missing two at 128) and YCbCr streams, 4 for CMYK and YCCK."""
+    missing two at the level shift) and YCbCr streams, 4 for CMYK and
+    YCCK."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise ValueError(
             "the compat decode needs full fp32 products: turn off "
@@ -263,17 +259,21 @@ def _pipeline(coeffs: torch.Tensor, matrices: torch.Tensor,
         planes.append(component_plane(
             pixels.reshape(*batch, -1, 8, 8), geom.mcus_y, geom.mcus_x, v, h,
             geom.v_max, geom.h_max, geom.height, geom.width, upsample))
+    maxval = (1 << geom.precision) - 1
+    shift = level_shift(maxval)
     if color_space == "ycbcr":
-        chans = [quantize_samples(p + 128.0, rounding) for p in planes]
+        # Stacked in float32 before the narrowing (the missing channels at
+        # the shift narrow to it), so no u16 tensor is stacked.
+        chans = [p + shift for p in planes]
         while len(chans) < 3:
-            chans.append(torch.full_like(chans[0], 128))
-        return torch.stack(chans, dim=-1)
+            chans.append(torch.full_like(chans[0], shift))
+        return quantize_samples(torch.stack(chans, dim=-1), rounding, maxval)
     if len(planes) == 1:
-        rgb = grayscale_to_rgb(planes[0], rounding)
+        rgb = grayscale_to_rgb(planes[0], rounding, maxval)
     elif len(planes) == 3 and geom.color_model == "rgb":
-        rgb = rgb_direct(*planes, rounding=rounding)
+        rgb = rgb_direct(*planes, rounding=rounding, maxval=maxval)
     elif len(planes) == 3:
-        rgb = ycbcr_to_rgb(*planes, rounding=rounding)
+        rgb = ycbcr_to_rgb(*planes, rounding=rounding, maxval=maxval)
     elif len(planes) == 4:
         rgb = cmyk_to_rgb(*planes, rounding=rounding,
                           ycck=geom.color_model == "ycck")
@@ -286,12 +286,27 @@ def decode_plan(plan: DecodePlan, rounding: str = "truncate",
                 engine: str = "auto", coefficients: np.ndarray | None = None,
                 upsample: str = "replicate", color_space: str = "rgb",
                 device="cuda") -> np.ndarray:
-    """The compat decode: DecodePlan -> RGB [H, W, 3] u8 numpy array (or the
-    level-shifted planes with ``color_space="ycbcr"``), the dense stage on
-    ``device``. ``coefficients`` (``[total_blocks, 64]`` int32 zigzag) skips
-    the entropy decode. ``upsample``: ``"replicate"`` (the reference's) or
-    ``"fancy"`` (libjpeg's triangular filter)."""
-    check_ported(plan)
+    """The compat decode: DecodePlan -> RGB [H, W, 3] numpy array (u8, or
+    u16 at 12-bit precision; the level-shifted planes with
+    ``color_space="ycbcr"``), the dense stage on ``device``.
+    ``coefficients`` (``[total_blocks, 64]`` int32 zigzag) skips the entropy
+    decode. ``upsample``: ``"replicate"`` (the reference's) or ``"fancy"``
+    (libjpeg's triangular filter).
+
+    A lossless (SOF3) plan returns its samples as the JAX package does
+    (colour options do not apply): :func:`~jpeg_tpu_torch.entropy.lossless.
+    decode_lossless` with the cumsum reconstruction on ``device`` where it
+    applies and ``engine`` elsewhere; gray replicated to three channels,
+    ``uint8`` up to 8 bits."""
+    if plan.lossless:
+        from jpeg_tpu_torch.entropy.lossless import decode_lossless
+
+        samples = decode_lossless(plan, device=device, engine=engine)
+        if samples.shape[2] == 1:
+            samples = np.repeat(samples, 3, axis=2)
+        if plan.precision <= 8:
+            samples = samples.astype(np.uint8)
+        return samples
     if coefficients is None:
         coefficients = decode_coefficients_host(plan, engine)
     coeffs = torch.as_tensor(np.asarray(coefficients, np.int32), device=device)
@@ -304,12 +319,12 @@ def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
                      device="cuda", idct_mode: str = "exact") -> np.ndarray:
     """C++ plane-layout entropy (baseline, progressive or SOF9) + K1 on
     ``device`` -> RGB [H, W, 3] u8; K1a with ``idct_mode="approx"``. Plans
-    K1 does not take (:func:`fast_path_takes`) go to :func:`decode_plan` on
-    ``device``, exact whatever ``idct_mode``, as in the JAX package."""
+    K1 does not take (:func:`fast_path_takes`: other colour models, 12-bit,
+    lossless) go to :func:`decode_plan` on ``device``, exact whatever
+    ``idct_mode``, as in the JAX package."""
     from jpeg_tpu_torch.ops.fused_plane import check_idct_mode, decode_planes_fused
 
     check_idct_mode(idct_mode)
-    check_ported(plan)
     if not fast_path_takes(plan):
         return decode_plan(plan, rounding, device=device)
     return decode_planes_fused(host_planes(plan), plan, rounding, device,
@@ -320,15 +335,17 @@ def decode_bytes(data: bytes, rounding: str = "truncate",
                  engine: str = "auto", path: str = "compat",
                  upsample: str = "replicate", color_space: str = "rgb",
                  idct_mode: str = "exact", device="cuda") -> np.ndarray:
-    """JPEG bytes -> RGB [H, W, 3] u8 numpy array, decoded on ``device``.
+    """JPEG bytes -> RGB [H, W, 3] numpy array, decoded on ``device``: u8,
+    or u16 for 12-bit frames and lossless frames above 8 bits.
 
     ``path="compat"`` (default, as in the JAX package) runs
     :func:`decode_plan` with ``engine``, ``upsample`` and ``color_space``;
     ``path="fast"`` with RGB output runs K1 (:func:`decode_plan_fast`,
     which alone reads ``idct_mode``: K1a for ``"approx"``) for gray and
     YCbCr streams, within +-1 u8 of compat, and ignores ``upsample`` and
-    ``engine`` there as the JAX package does. Every other stream or colour
-    space takes the compat path."""
+    ``engine`` there as the JAX package does. Every other stream (other
+    colour models, 12-bit, lossless) or colour space takes the compat
+    path."""
     if path not in ("compat", "fast"):
         raise ValueError(f"unknown path {path!r}")
     plan = parse_jpeg(data)

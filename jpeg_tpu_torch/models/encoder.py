@@ -1,12 +1,16 @@
-"""Baseline JPEG encoder: RGB or gray u8 -> JFIF bytes.
+"""JPEG encoder: RGB or gray samples -> JFIF bytes.
 
-Counterpart of ``jpeg_tpu/models/encoder.py`` for 8-bit baseline Huffman
-streams. Two routes, as in the JAX package:
+Counterpart of ``jpeg_tpu/models/encoder.py``, byte-identical to it: 8- and
+12-bit sequential streams, Huffman (SOF0 / SOF1) or arithmetic coded (SOF9),
+progressive streams (SOF2 / SOF10) and Adobe CMYK / YCCK. Two routes, as in
+the JAX package:
 
-- :func:`encode_rgb`: the forward transform in NumPy on the host (a copy of
-  the JAX package's, so the streams are byte-identical), then the C++
-  entropy encoder (``engine="native"``) or the pure-Python packer
-  (``engine="python"``);
+- :func:`encode_rgb`, :func:`encode_rgb_progressive` and
+  :func:`encode_cmyk`: the forward transform in NumPy on the host (a copy of
+  the JAX package's), then the C++ entropy encoder (``engine="native"``:
+  Huffman, arithmetic and the progressive scans) or the pure-Python one
+  (``engine="python"``; ``entropy/arith.py`` for arithmetic coding, which
+  SOF10 streams and arithmetic CMYK always take, as in the JAX package);
 - :func:`encode_rgb_device`: the forward transform as K2
   (``ops/fused_encode.py``) on ``device``, the planes copied to the host
   once, then the C++ entropy encoder. K2 multiplies by a reciprocal table
@@ -14,10 +18,8 @@ streams. Two routes, as in the JAX package:
   (quantisation ties); they decode within the repo's 45 dB bar.
 
 A failed build or load of the C++ encoder raises; nothing drops to the
-Python packer behind the caller's back. :func:`encode_cmyk` writes Adobe
-CMYK and YCCK streams as the JAX package does. Routes of the JAX encoder
-that lead off this slice (arithmetic coding, 12-bit, progressive) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item (3c).
+Python packer behind the caller's back, where the JAX package falls back on
+``ImportError`` / ``OSError``.
 """
 
 from __future__ import annotations
@@ -26,10 +28,15 @@ import numpy as np
 
 from jpeg_tpu_torch.entropy import annex_k
 from jpeg_tpu_torch.entropy.tables import HuffmanTable
-from jpeg_tpu_torch.models.decoder import PipelineGeometry, not_ported
+from jpeg_tpu_torch.models.decoder import PipelineGeometry
 from jpeg_tpu_torch.ops.idct import forward_dct_matrix
 from jpeg_tpu_torch.ops.zigzag import ZIGZAG_INDICES, unzigzag, zigzag
-from jpeg_tpu_torch.runtime import native_encode_scan
+from jpeg_tpu_torch.runtime import (
+    join_segments,
+    native_encode_arith_scan,
+    native_encode_progressive_scans,
+    native_encode_scan,
+)
 
 
 def _build_encode_maps(table: HuffmanTable):
@@ -132,15 +139,17 @@ def _quant_tables(quality: int, grayscale: bool) -> list[np.ndarray]:
     return [q_luma] + ([] if grayscale else [q_chroma])
 
 
-def _forward_transform(rgb, quality, subsampling, grayscale):
-    """RGB/gray -> per-component quantized zigzag blocks + geometry (8-bit;
-    NumPy on the host, as in the JAX package)."""
+def _forward_transform(rgb, quality, subsampling, grayscale,
+                       precision: int = 8):
+    """RGB/gray -> per-component quantized zigzag blocks + geometry (NumPy
+    on the host, as in the JAX package). ``precision=12`` takes u16 samples
+    in [0, 4095] and shifts by 2048."""
     rgb = np.asarray(rgb)
     _validate_image(rgb, grayscale)
     if rgb.ndim == 2:
         grayscale = True
     h_s, v_s = (1, 1) if grayscale else subsampling
-    shift = np.float32(128)
+    shift = np.float32(1 << (precision - 1))
 
     if grayscale:
         planes = [rgb.astype(np.float32) - shift]
@@ -279,25 +288,13 @@ def _native_scan(planes, samplings, dc_maps, ac_maps, mcus_x, mcus_y,
         dc_code, dc_len, ac_code, ac_len,
         [min(ci, 1) for ci in range(len(samplings))],
     )
-    scan = bytearray(segs[0])
-    for i, seg in enumerate(segs[1:]):
-        scan += bytes([0xFF, 0xD0 + (i % 8)])
-        scan += seg
-    return bytes(scan)
+    return join_segments(segs)
 
 
 def _entropy_native(comp_blocks_zz, samplings, dc_maps, ac_maps,
                     mcus_x, mcus_y, restart_interval_mcus):
-    # Natural-order int16 planes (K2's output layout, unpadded).
-    planes = []
-    for blocks_zz in comp_blocks_zz:
-        rows, cols, _ = blocks_zz.shape
-        nat = unzigzag(blocks_zz.reshape(-1, 64)).reshape(rows, cols, 8, 8)
-        planes.append(
-            nat.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8).astype(np.int16)
-        )
-    return _native_scan(planes, samplings, dc_maps, ac_maps, mcus_x, mcus_y,
-                        restart_interval_mcus)
+    return _native_scan(_natural_planes(comp_blocks_zz), samplings, dc_maps,
+                        ac_maps, mcus_x, mcus_y, restart_interval_mcus)
 
 
 def device_inputs(rgb: np.ndarray, quality: int = 85,
@@ -391,19 +388,20 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
 def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
                restart_interval_mcus, comment: str | None = None,
                component_ids=None, quant_ids=None, table_ids=None,
-               adobe_transform: int | None = None) -> bytes:
-    """Assemble SOI..EOI around a baseline Huffman scan.
+               adobe_transform: int | None = None,
+               precision: int = 8) -> bytes:
+    """Assemble SOI..EOI around a sequential scan.
 
     Defaults emit a JFIF stream with ids 1..n and the luma/chroma table
     split; the optional keyword args support Adobe streams (APP14 instead
     of JFIF APP0 — JFIF only allows 1 or 3 components) with custom
-    component ids and per-component table assignments (the JAX package's
-    ``_container``; its arithmetic and 12-bit options belong to routes not
-    ported yet)."""
+    component ids and per-component table assignments. ``dc_t=None`` marks
+    an arithmetic scan (SOF9 and DAC in place of SOF0/SOF1 and DHT)."""
     ncomp = len(samplings)
     component_ids = component_ids or [ci + 1 for ci in range(ncomp)]
     quant_ids = quant_ids or [min(ci, 1) for ci in range(ncomp)]
     table_ids = table_ids or [min(ci, 1) for ci in range(ncomp)]
+    arithmetic = dc_t is None
     out = bytearray(b"\xff\xd8")  # SOI
     if adobe_transform is None:
         app0 = b"JFIF\x00\x01\x01\x00" + (1).to_bytes(2, "big") * 2 + b"\x00\x00"
@@ -417,15 +415,22 @@ def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
     for tid, q in enumerate(quant_zz):
         body = bytes([tid]) + bytes(q.astype(np.uint8).tolist())
         out += b"\xff\xdb" + (len(body) + 2).to_bytes(2, "big") + body
-    sof = bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(
+    sof = bytes([precision]) + height.to_bytes(2, "big") + width.to_bytes(
         2, "big") + bytes([ncomp])
     for ci, (h, v) in enumerate(samplings):
         sof += bytes([component_ids[ci], (h << 4) | v, quant_ids[ci]])
-    out += b"\xff\xc0" + (len(sof) + 2).to_bytes(2, "big") + sof
-    for cls, tables in ((0, dc_t), (1, ac_t)):
-        for tid, t in enumerate(tables):
-            body = bytes([(cls << 4) | tid]) + bytes(t.bits.tolist()) + bytes(t.values.tolist())
-            out += b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body
+    # 12-bit needs the extended-sequential frame types: SOF1 (Huffman) /
+    # SOF9 (arithmetic, which covers both precisions).
+    sof_marker = (b"\xff\xc9" if arithmetic
+                  else (b"\xff\xc1" if precision == 12 else b"\xff\xc0"))
+    out += sof_marker + (len(sof) + 2).to_bytes(2, "big") + sof
+    if arithmetic:
+        out += _dac_segment(sorted(set(table_ids)))
+    else:
+        for cls, tables in ((0, dc_t), (1, ac_t)):
+            for tid, t in enumerate(tables):
+                body = bytes([(cls << 4) | tid]) + bytes(t.bits.tolist()) + bytes(t.values.tolist())
+                out += b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body
     if restart_interval_mcus:
         out += b"\xff\xdd\x00\x04" + restart_interval_mcus.to_bytes(2, "big")
     sos = bytes([ncomp])
@@ -439,6 +444,45 @@ def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
     return bytes(out)
 
 
+def _dac_segment(table_ids) -> bytes:
+    """DAC with the default conditioning (DC L=0 U=1, AC Kx=5; T.81
+    F.1.4.4.1.4) for each table slot in use."""
+    dac = b""
+    for tid in table_ids:
+        dac += bytes([tid, (1 << 4) | 0])  # DC: U=1, L=0
+        dac += bytes([(1 << 4) | tid, 5])  # AC: Kx=5
+    return b"\xff\xcc" + (len(dac) + 2).to_bytes(2, "big") + dac
+
+
+def _natural_planes(comp_blocks_zz) -> list[np.ndarray]:
+    """Quantized zigzag blocks [rows, cols, 64] -> natural-order int16
+    planes [rows * 8, cols * 8] (K2's output layout, unpadded)."""
+    planes = []
+    for blocks_zz in comp_blocks_zz:
+        rows, cols, _ = blocks_zz.shape
+        nat = unzigzag(blocks_zz.reshape(-1, 64)).reshape(rows, cols, 8, 8)
+        planes.append(
+            nat.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8).astype(np.int16)
+        )
+    return planes
+
+
+def _arith_scan(comp_blocks_zz, samplings, mcus_x, mcus_y,
+                restart_interval_mcus, table_ids, engine: str) -> bytes:
+    """A sequential arithmetic (SOF9) scan: the C++ QM coder
+    (``engine="native"``) or ``entropy/arith.py`` (``"python"``)."""
+    if engine == "python":
+        from jpeg_tpu_torch.entropy.arith import encode_scan_arith
+
+        return encode_scan_arith(comp_blocks_zz, samplings, mcus_x, mcus_y,
+                                 restart_interval_mcus, table_ids)
+    segs = native_encode_arith_scan(
+        _natural_planes(comp_blocks_zz), _slots(samplings),
+        [h for h, _ in samplings], [v for _, v in samplings],
+        mcus_x, mcus_x * mcus_y, restart_interval_mcus, table_ids)
+    return join_segments(segs)
+
+
 def encode_rgb(rgb: np.ndarray, quality: int = 85,
                subsampling: tuple[int, int] = (2, 2),
                restart_interval_mcus: int = 0,
@@ -448,43 +492,124 @@ def encode_rgb(rgb: np.ndarray, quality: int = 85,
                comment: str | None = None,
                arithmetic: bool = False,
                precision: int = 8) -> bytes:
-    """Encode [H, W, 3] u8 RGB (or [H, W] gray) to baseline JFIF bytes.
+    """Encode [H, W, 3] RGB (or [H, W] gray) to sequential JFIF bytes.
 
     ``subsampling`` is the luma sampling factor (h, v): (1,1)=4:4:4,
     (2,1)=4:2:2, (2,2)=4:2:0. ``engine``: "native" (threaded C++ entropy
     pack, parallel over restart segments) or "python". ``optimize=True``
     runs a statistics pass and emits per-image optimal Huffman tables
-    (Annex K.2) instead of the typical Annex K tables. The forward
+    (Annex K.2) instead of the typical Annex K tables.
+    ``arithmetic=True`` emits SOF9 QM-coded entropy instead (adaptive, so
+    ``optimize`` does not apply). ``precision=12`` emits a 12-bit
+    extended-sequential stream (SOF1 Huffman, always with optimal tables,
+    or SOF9) from [H, W(, 3)] u16 samples in [0, 4095]. The forward
     transform runs in NumPy on the host, as in the JAX package; the device
     transform is :func:`encode_rgb_device`.
     """
     if precision not in (8, 12):
         raise ValueError(f"unsupported precision {precision}")
-    if arithmetic:
-        raise not_ported("arithmetic-coded (SOF9) encode", "3c")
-    if precision == 12:
-        raise not_ported("12-bit encode", "3c")
     if engine not in ("native", "python"):
         raise ValueError(f"unknown engine {engine!r}")
     (comp_blocks_zz, samplings, quant_zz, height, width,
      mcus_x, mcus_y, grayscale) = _forward_transform(
-        rgb, quality, subsampling, grayscale)
+        rgb, quality, subsampling, grayscale, precision)
 
-    dc_t, ac_t = _huffman_tables(grayscale, optimize, comp_blocks_zz,
-                                 samplings, restart_interval_mcus,
-                                 mcus_x, mcus_y)
+    if arithmetic:
+        scan = _arith_scan(comp_blocks_zz, samplings, mcus_x, mcus_y,
+                           restart_interval_mcus,
+                           [min(ci, 1) for ci in range(len(samplings))],
+                           engine)
+        return _container(scan, samplings, quant_zz, None, None, height,
+                          width, restart_interval_mcus, comment=comment,
+                          precision=precision)
+
+    dc_t, ac_t = _huffman_tables(grayscale, optimize or precision == 12,
+                                 comp_blocks_zz, samplings,
+                                 restart_interval_mcus, mcus_x, mcus_y)
     dc_maps = [_build_encode_maps(t) for t in dc_t]
     ac_maps = [_build_encode_maps(t) for t in ac_t]
     entropy = _entropy_native if engine == "native" else _entropy_python
     scan = entropy(comp_blocks_zz, samplings, dc_maps, ac_maps,
                    mcus_x, mcus_y, restart_interval_mcus)
     return _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,
-                      restart_interval_mcus, comment=comment)
+                      restart_interval_mcus, comment=comment,
+                      precision=precision)
 
 
-def encode_rgb_progressive(*args, **kwargs) -> bytes:
-    """Progressive (SOF2/SOF10) encode: not ported yet."""
-    raise not_ported("progressive encode (encode_rgb_progressive)", "3c")
+def encode_rgb_progressive(rgb: np.ndarray, quality: int = 85,
+                           subsampling: tuple[int, int] = (2, 2),
+                           grayscale: bool = False,
+                           scan_script=None,
+                           restart_interval: int = 0,
+                           arithmetic: bool = False,
+                           precision: int = 8) -> bytes:
+    """Encode to a progressive JFIF stream: SOF2, or SOF10 with
+    ``arithmetic=True``.
+
+    libjpeg's standard scan script (or ``scan_script``) with per-scan
+    optimal Huffman tables; the same quantized coefficients as
+    :func:`encode_rgb`, so both decode to the same pixels. Huffman scans
+    run in C++ (``runtime.native_encode_progressive_scans``, byte-identical
+    to ``entropy/progressive_encode.py``); arithmetic scans run in
+    ``entropy/arith.py``, as in the JAX package, which has no C++ SOF10
+    encoder."""
+    from jpeg_tpu_torch.entropy.progressive_encode import standard_scan_script
+
+    if precision not in (8, 12):
+        raise ValueError(f"unsupported precision {precision}")
+    (comp_blocks_zz, samplings, quant_zz, height, width,
+     mcus_x, mcus_y, grayscale) = _forward_transform(
+        rgb, quality, subsampling, grayscale, precision)
+    ncomp = len(samplings)
+
+    if arithmetic:
+        from jpeg_tpu_torch.entropy.arith import encode_progressive_scans_arith
+
+        scans = encode_progressive_scans_arith(
+            comp_blocks_zz, samplings, mcus_x, mcus_y,
+            scan_script or standard_scan_script(ncomp), restart_interval,
+            [min(ci, 1) for ci in range(ncomp)])
+    else:
+        scans = native_encode_progressive_scans(
+            comp_blocks_zz, samplings, mcus_x, mcus_y, width, height,
+            scan_script=scan_script, restart_interval=restart_interval)
+
+    out = bytearray(b"\xff\xd8")
+    app0 = b"JFIF\x00\x01\x01\x00" + (1).to_bytes(2, "big") * 2 + b"\x00\x00"
+    out += b"\xff\xe0" + (len(app0) + 2).to_bytes(2, "big") + app0
+    for tid, q in enumerate(quant_zz):
+        body = bytes([tid]) + bytes(q.astype(np.uint8).tolist())
+        out += b"\xff\xdb" + (len(body) + 2).to_bytes(2, "big") + body
+    sof = bytes([precision]) + height.to_bytes(2, "big") + width.to_bytes(
+        2, "big") + bytes([ncomp])
+    for ci, (h, v) in enumerate(samplings):
+        sof += bytes([ci + 1, (h << 4) | v, min(ci, 1)])
+    out += (b"\xff\xca" if arithmetic else b"\xff\xc2") + (
+        len(sof) + 2).to_bytes(2, "big") + sof  # SOF10 / SOF2
+    if arithmetic:
+        out += _dac_segment(sorted({min(ci, 1) for ci in range(ncomp)}))
+    if restart_interval:
+        out += b"\xff\xdd\x00\x04" + restart_interval.to_bytes(2, "big")
+    for scan in scans:
+        # Per-scan DHT(s): DC tables at slots by component position, AC at 0.
+        for cls_name, slot, table in scan["tables"]:
+            cls = 0 if cls_name == "dc" else 1
+            body = bytes([(cls << 4) | slot]) + bytes(table.bits.tolist()) \
+                + bytes(table.values.tolist())
+            out += b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body
+        sos = bytes([len(scan["comps"])])
+        for si, ci in enumerate(scan["comps"]):
+            if arithmetic:
+                dc_sel = ac_sel = min(ci, 1)
+            else:
+                dc_sel = si if scan["ss"] == 0 and scan["ah"] == 0 else 0
+                ac_sel = 0
+            sos += bytes([ci + 1, (dc_sel << 4) | ac_sel])
+        sos += bytes([scan["ss"], scan["se"], (scan["ah"] << 4) | scan["al"]])
+        out += b"\xff\xda" + (len(sos) + 2).to_bytes(2, "big") + sos
+        out += scan["data"]
+    out += b"\xff\xd9"
+    return bytes(out)
 
 
 def encode_cmyk(cmyk: np.ndarray, quality: int = 85,
@@ -502,12 +627,10 @@ def encode_cmyk(cmyk: np.ndarray, quality: int = 85,
     matching what Pillow writes and reads back via its ``CMYK;I`` rawmode.
     ``ycck=True`` emits APP14 transform 2 with the ink channels
     YCbCr-converted first (libjpeg jccolor rgb_ycck_convert). ``engine``:
-    "native" (the C++ packer) or "python". ``arithmetic=True`` (SOF9) is not
-    ported yet.
+    "native" (the C++ packer) or "python". ``arithmetic=True`` writes SOF9
+    through ``entropy/arith.py`` whatever ``engine``, as the JAX package
+    does.
     """
-    if arithmetic:
-        raise not_ported("arithmetic-coded CMYK/YCCK encode "
-                         "(encode_cmyk(arithmetic=True))", "3c")
     if engine not in ("native", "python"):
         raise ValueError(f"unknown engine {engine!r}")
     cmyk = np.asarray(cmyk)
@@ -535,6 +658,15 @@ def encode_cmyk(cmyk: np.ndarray, quality: int = 85,
         coeffs = _plane_to_blocks(plane) @ fwd
         zz = np.round(zigzag(coeffs) / q_luma.astype(np.float32)).astype(np.int32)
         comp_blocks_zz.append(zz.reshape(mcus_y, mcus_x, 64))
+
+    if arithmetic:
+        scan = _arith_scan(comp_blocks_zz, samplings, mcus_x, mcus_y,
+                           restart_interval_mcus, [0] * 4, "python")
+        return _container(scan, samplings, [q_luma], None, None, height,
+                          width, restart_interval_mcus, comment=comment,
+                          component_ids=[67, 77, 89, 75],
+                          quant_ids=[0] * 4, table_ids=[0] * 4,
+                          adobe_transform=2 if ycck else 0)
     dc_t = [HuffmanTable.from_bits_values(
         annex_k.DC_LUMA_BITS, annex_k.DC_LUMA_VALS)]
     ac_t = [HuffmanTable.from_bits_values(

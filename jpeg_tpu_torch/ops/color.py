@@ -1,7 +1,9 @@
-"""Colour conversions and the u8 narrowing, on torch tensors.
+"""Colour conversions and the narrowing to samples, on torch tensors.
 
-Counterpart of ``jpeg_tpu/ops/color.py`` for 8-bit samples: YCbCr, gray,
-RGB-direct and Adobe CMYK / YCCK to RGB. The reference
+Counterpart of ``jpeg_tpu/ops/color.py``: YCbCr, gray, RGB-direct and Adobe
+CMYK / YCCK to RGB, u8 at 8-bit precision and u16 at 12-bit (``maxval``
+4095: level shift 2048, clamp to 4095; CMYK / YCCK stay 8-bit, as in the
+JAX package). The reference
 derives G from the already computed R and B (``src/jpeg/decoder.rs:392-402``);
 the operations run in that order, in float32, so the truncate mode matches
 the reference bit for bit. K1 (``csrc/fused_plane.cu``) repeats the same
@@ -36,33 +38,45 @@ def quantize_u8(x: torch.Tensor, rounding: str = "truncate") -> torch.Tensor:
 
 def quantize_samples(x: torch.Tensor, rounding: str = "truncate",
                      maxval: int = 255) -> torch.Tensor:
-    """Clamp to [0, maxval] and narrow: u8 at 8-bit precision. Wider
-    samples (12-bit, u16) are not ported."""
-    if maxval > 255:
-        from jpeg_tpu_torch.models.decoder import not_ported
+    """Clamp to [0, maxval] and narrow: u8 at 8-bit precision, u16 above
+    (12-bit, maxval 4095), with :func:`quantize_u8`'s rounding modes. The
+    u16 result is computed in float32 and int32 and narrowed by one
+    ``.to(torch.uint16)``, the only u16 operation it runs on the device."""
+    if maxval <= 255:
+        return quantize_u8(x, rounding)
+    if rounding == "round":
+        x = torch.floor(x + 0.5)
+    elif rounding != "truncate":
+        raise ValueError(f"unknown rounding {rounding!r}")
+    return x.clamp(0.0, float(maxval)).to(torch.int32).to(torch.uint16)
 
-        raise not_ported("12-bit samples", "3b")
-    return quantize_u8(x, rounding)
+
+def level_shift(maxval: int) -> float:
+    """The level shift of ``maxval``'s precision: 128 at 8 bits, 2048 at 12."""
+    return float((maxval + 1) // 2)
 
 
 def ycbcr_to_rgb(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
-                 rounding: str = "truncate") -> torch.Tensor:
-    """Centered float32 planes [..., H, W] -> RGB u8 [..., 3, H, W] (planar,
-    the layout K1 writes)."""
+                 rounding: str = "truncate", maxval: int = 255) -> torch.Tensor:
+    """Centered float32 planes [..., H, W] -> RGB [..., 3, H, W] (planar,
+    the layout K1 writes), u8 or, above ``maxval`` 255, u16."""
     c_blue = torch.tensor(C_BLUE, dtype=torch.float32, device=y.device)
     c_red = torch.tensor(C_RED, dtype=torch.float32, device=y.device)
     c_green = torch.tensor(C_GREEN, dtype=torch.float32, device=y.device)
     r = cr * K_RED + y
     b = cb * K_BLUE + y
     g = (y - c_blue * b - c_red * r) / c_green
-    rgb = torch.stack([r + 128.0, g + 128.0, b + 128.0], dim=-3)
-    return quantize_u8(rgb, rounding)
+    shift = level_shift(maxval)
+    rgb = torch.stack([r + shift, g + shift, b + shift], dim=-3)
+    return quantize_samples(rgb, rounding, maxval)
 
 
-def grayscale_to_rgb(y: torch.Tensor, rounding: str = "truncate") -> torch.Tensor:
-    """Centered gray plane [..., H, W] -> replicated RGB u8 [..., 3, H, W]."""
-    u = quantize_u8(y + 128.0, rounding)
-    return torch.stack([u, u, u], dim=-3)
+def grayscale_to_rgb(y: torch.Tensor, rounding: str = "truncate",
+                     maxval: int = 255) -> torch.Tensor:
+    """Centered gray plane [..., H, W] -> replicated RGB [..., 3, H, W]
+    (stacked before the narrowing: the same samples, and no u16 copy)."""
+    u = y + level_shift(maxval)
+    return quantize_samples(torch.stack([u, u, u], dim=-3), rounding, maxval)
 
 
 def cmyk_to_rgb(c: torch.Tensor, m: torch.Tensor, y: torch.Tensor,
@@ -93,8 +107,10 @@ def cmyk_to_rgb(c: torch.Tensor, m: torch.Tensor, y: torch.Tensor,
 
 
 def rgb_direct(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-               rounding: str = "truncate") -> torch.Tensor:
+               rounding: str = "truncate", maxval: int = 255) -> torch.Tensor:
     """3-component stream already in RGB (Adobe transform 0, or component
-    ids R, G, B): level shift only -> RGB u8 [..., 3, H, W]."""
-    return quantize_u8(torch.stack([r + 128.0, g + 128.0, b + 128.0], dim=-3),
-                       rounding)
+    ids R, G, B): level shift only -> RGB [..., 3, H, W]."""
+    shift = level_shift(maxval)
+    return quantize_samples(
+        torch.stack([r + shift, g + shift, b + shift], dim=-3), rounding,
+        maxval)

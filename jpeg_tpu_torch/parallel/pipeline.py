@@ -6,9 +6,10 @@ pool over the single-image decode, compat or fast path) and
 entropy-decoded on host threads (the C++ runtime releases the GIL) into
 int16 coefficient planes, whatever their entropy coding, grouped by
 geometry, and each group runs through one K1 launch (K1a with
-``idct_mode="approx"``). RGB-direct, CMYK and
-YCCK images, which K1 does not take, are decoded inline by their worker
-through the compat path on the decoder's device.
+``idct_mode="approx"``). RGB-direct, CMYK, YCCK, 12-bit and lossless
+images, which K1 does not take, are decoded inline by their worker through
+the compat path on the decoder's device (12-bit and lossless frames keep
+their ``uint16`` samples), as in the JAX package.
 
 With ``hybrid_device=True`` a device thread also claims batches from the
 back of the work list and decodes their entropy with K3
@@ -21,9 +22,8 @@ tables or slot structure differ (``BatchMismatch``, raised before launch). Any
 other failure (a kernel that does not build, a launch or CUDA error) raises
 out of :meth:`BatchedCorpusDecoder.decode_all`.
 
-Per-image isolation: an image that cannot be decoded, including a stream
-off the ported slice (``NotImplementedError``), becomes an error record and
-never stops the corpus. A build, launch or CUDA failure (a ``RuntimeError``
+Per-image isolation: an image that cannot be decoded becomes an error
+record and never stops the corpus. A build, launch or CUDA failure (a ``RuntimeError``
 other than ``NotImplementedError``) is not the image's fault and raises.
 """
 
@@ -43,7 +43,6 @@ from jpeg_tpu_torch.entropy import device_huffman, device_window
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models.decoder import (
     PipelineGeometry,
-    check_ported,
     coefficient_planes_from_blocks,
     decode_plan,
     decode_plan_fast,
@@ -187,13 +186,12 @@ class BatchedCorpusDecoder:
         return self._pool, self._dev_pool
 
     def _entropy_one(self, item):
-        """Host route -> (name, plan, geom, planes, error). Planes of a
-        colour model K1 does not take are decoded here through the compat
-        path on ``self.device``: geom is then ``"compat"`` and planes the
-        RGB image."""
+        """Host route -> (name, plan, geom, planes, error). Plans K1 does
+        not take (another colour model, 12-bit, lossless) are decoded here
+        through the compat path on ``self.device``: geom is then
+        ``"compat"`` and planes the image."""
         try:
             plan = parse_jpeg(_read(item))
-            check_ported(plan)
             if not fast_path_takes(plan):
                 rgb = decode_plan(plan, self.rounding, device=self.device)
                 return (_name(item), plan, "compat", rgb, None)

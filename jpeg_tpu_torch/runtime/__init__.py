@@ -17,11 +17,13 @@ library (``jpeg_tpu_torch/runtime/native/jpegtpu.cpp``, a verbatim copy of
   into K1's planes (``jt_prog_assemble_planes``);
 - sequential arithmetic (SOF9) scans into blocks (``jt_decode_arith_scan``)
   or planes (``jt_decode_arith_scan_planes``);
+- lossless (SOF3) scans into samples (``jt_decode_lossless``);
 
-and ``jt_encode_scan`` of its C++ entropy encoder
-(``jpeg_tpu_torch/runtime/native/jpegtpu_enc.cpp``, a copy of the JAX
-package's): restart-segment-parallel Huffman packing of natural-order int16
-planes (the layout K2 writes).
+and of its C++ entropy encoder (``jpeg_tpu_torch/runtime/native/
+jpegtpu_enc.cpp``, a copy of the JAX package's): restart-segment-parallel
+Huffman (``jt_encode_scan``) and QM arithmetic (``jt_encode_arith_scan``)
+packing of natural-order int16 planes (the layout K2 writes), and the
+progressive scans' DC and AC passes (``jt_encode_prog_dc`` / ``_ac``).
 
 Each library is compiled with g++ into ``jpeg_tpu_torch/build/`` at first use
 (no profile-guided step: its training script imports jax). A missing
@@ -65,6 +67,14 @@ def _configure(lib: ctypes.CDLL) -> None:
     i64p = ctypes.POINTER(ctypes.c_int64)
     u16p = ctypes.POINTER(ctypes.c_uint16)
     i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.jt_decode_lossless.restype = ctypes.c_int64
+    lib.jt_decode_lossless.argtypes = [
+        u8p, i64p, i64p, i64p, i64p, ctypes.c_int64,  # data, segs
+        ctypes.c_int32, u16p, ctypes.POINTER(ctypes.c_int32),  # ncomp, luts, dc ids
+        ctypes.c_int64, ctypes.c_int64,  # width, height
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # pred, pt, prec
+        u16p, ctypes.c_int32,  # out, n_threads
+    ]
     lib.jt_decode_scan.restype = ctypes.c_int64
     lib.jt_decode_scan.argtypes = [
         u8p, ctypes.c_int64,  # data, n_bytes
@@ -322,6 +332,33 @@ def native_decode_coefficients(plan, n_threads: int | None = None,
     covered = int(a["seg_mcu_count"].sum()) * plan.blocks_per_mcu
     if covered < plan.total_blocks:
         out[covered:] = 0
+    return out
+
+
+def native_decode_lossless(plan, n_threads: int | None = None) -> np.ndarray:
+    """Lossless (SOF3) decode -> ``[H, W, ncomp]`` uint16 samples, the
+    contract of :func:`jpeg_tpu_torch.entropy.lossless.decode_lossless`:
+    differences decode in parallel over restart segments, the prediction
+    pass runs in order. Raises :class:`NativeDecodeError` on an invalid
+    prefix."""
+    lib = load()
+    if n_threads is None:
+        n_threads = os.cpu_count() or 1
+    data = np.ascontiguousarray(plan.scan_data, dtype=np.uint8)
+    segs = [np.array([getattr(s, f) for s in plan.segments], np.int64)
+            for f in ("byte_start", "byte_end", "mcu_start", "mcu_count")]
+    comp_dc = np.array([c.dc_id for c in plan.components], np.int32)
+    dc_luts = _packed_luts(plan.dc_tables)
+    out = np.zeros((plan.height, plan.width, len(plan.components)), np.uint16)
+    err = lib.jt_decode_lossless(
+        _p(data, ctypes.c_uint8), *(_p(a, ctypes.c_int64) for a in segs),
+        len(plan.segments), len(plan.components),
+        _p(dc_luts, ctypes.c_uint16), _p(comp_dc, ctypes.c_int32),
+        plan.width, plan.height,
+        plan.predictor, plan.point_transform, plan.precision,
+        _p(out, ctypes.c_uint16), n_threads)
+    if err >= 0:
+        raise NativeDecodeError(int(err))
     return out
 
 
@@ -907,12 +944,41 @@ def native_unstuff_scan(data: np.ndarray, start: int):
 
 
 def _configure_enc(lib: ctypes.CDLL) -> None:
-    """ctypes signature of ``jt_encode_scan``, as ``jpeg_tpu/runtime/
-    __init__.py`` declares it."""
+    """ctypes signatures of the encoder's entry points, as ``jpeg_tpu/
+    runtime/__init__.py`` declares them (``_load_enc``, ``_load_prog_enc``)."""
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32p = ctypes.POINTER(ctypes.c_uint32)
+    i32p = ctypes.POINTER(ctypes.c_int32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i16p = ctypes.POINTER(ctypes.c_int16)
+    lib.jt_encode_arith_scan.restype = ctypes.c_int32
+    lib.jt_encode_arith_scan.argtypes = [
+        ctypes.POINTER(i16p), i64p,  # planes, strides
+        u8p, u8p, u8p, ctypes.c_int32,  # slot comp/vi/hi, bpm
+        u8p, u8p, ctypes.c_int32, ctypes.c_int32,  # comp h/v, n_comp, mcus_x
+        ctypes.c_int64, ctypes.c_int32,  # n_mcus, restart_interval
+        u8p, u8p, u8p, u8p,  # comp_tid, dc_L, dc_U, ac_K
+        u8p, ctypes.c_int64, i64p,  # out, seg_capacity, seg_bytes
+        ctypes.c_int32,  # n_threads
+    ]
+    lib.jt_encode_prog_ac.restype = ctypes.c_int64
+    lib.jt_encode_prog_ac.argtypes = [
+        i32p, ctypes.c_int64, ctypes.c_int64,  # state, cols, bw
+        ctypes.c_int64, ctypes.c_int64,  # unit range [u0, u1)
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # ss se ah al
+        ctypes.c_int32,  # mode: 0 count symbols, 1 emit
+        i64p, u32p, u8p, u8p,  # freq, code, len, out
+    ]
+    lib.jt_encode_prog_dc.restype = ctypes.c_int64
+    lib.jt_encode_prog_dc.argtypes = [
+        ctypes.POINTER(i32p), i64p,  # state ptrs, cols
+        ctypes.c_int32, i32p, i32p,  # n comps, h, v
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        i64p,  # mcus_x, u0, u1, interleaved, bw
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # ah, al, mode
+        ctypes.POINTER(i64p), ctypes.POINTER(u32p), ctypes.POINTER(u8p),
+        u8p,  # out
+    ]
     lib.jt_encode_scan.restype = ctypes.c_int32
     lib.jt_encode_scan.argtypes = [
         ctypes.POINTER(i16p), i64p,  # planes, strides
@@ -932,46 +998,33 @@ def load_encoder() -> ctypes.CDLL:
                         _configure_enc)
 
 
-def native_encode_scan(planes, slots, comp_h, comp_v, mcus_x, n_mcus,
-                       restart_interval, dc_code, dc_len, ac_code, ac_len,
-                       comp_tid, n_threads: int | None = None) -> list[bytes]:
-    """Entropy-encode quantized natural-order int16 planes -> per-restart-
-    segment byte strings (each byte-aligned; caller interleaves RST markers).
-
-    Parallel across segments. ``dc_code``/... are [2, 256] symbol tables
-    (uint32 codes / uint8 lengths), ``comp_tid`` the 0/1 selector per
-    component. Same contract as ``jpeg_tpu.runtime.native_encode_scan``.
-    """
-    lib = load_encoder()
+def _encode_segments(entry, planes, slots, comp_h, comp_v, mcus_x, n_mcus,
+                     restart_interval, tables, bytes_per_coeff, n_threads):
+    """Run a per-segment plane encoder (``jt_encode_scan`` or
+    ``jt_encode_arith_scan``, whose argument lists differ only in
+    ``tables``) into per-restart-segment byte strings, growing the output
+    buffer up to twice if a segment overflows it."""
     if n_threads is None:
         n_threads = os.cpu_count() or 1
     planes = [np.ascontiguousarray(p, dtype=np.int16) for p in planes]
     i16p = ctypes.POINTER(ctypes.c_int16)
     ptrs = (i16p * len(planes))(*[_p(p, ctypes.c_int16) for p in planes])
     strides = np.array([p.shape[1] for p in planes], dtype=np.int64)
-    slot_comp = np.array([s[0] for s in slots], dtype=np.uint8)
-    slot_vi = np.array([s[1] for s in slots], dtype=np.uint8)
-    slot_hi = np.array([s[2] for s in slots], dtype=np.uint8)
+    slot_arrays = [np.array([s[k] for s in slots], dtype=np.uint8)
+                   for k in range(3)]
     bpm = len(slots)
     ri = restart_interval or n_mcus
     n_segs = -(-n_mcus // ri)
-    # Worst case ~ stuffing-doubled 27 bits/coefficient.
-    seg_capacity = int(ri * bpm * 64 * 8 + 64)
+    seg_capacity = int(ri * bpm * 64 * bytes_per_coeff + 64)
     for _ in range(3):
         out = np.empty(n_segs * seg_capacity, dtype=np.uint8)
         seg_bytes = np.zeros(n_segs, dtype=np.int64)
-        rc = lib.jt_encode_scan(
+        rc = entry(
             ptrs, _p(strides, ctypes.c_int64),
-            _p(slot_comp, ctypes.c_uint8), _p(slot_vi, ctypes.c_uint8),
-            _p(slot_hi, ctypes.c_uint8), bpm,
+            *(_p(a, ctypes.c_uint8) for a in slot_arrays), bpm,
             _p(np.asarray(comp_h, np.uint8), ctypes.c_uint8),
             _p(np.asarray(comp_v, np.uint8), ctypes.c_uint8),
-            len(planes), mcus_x, n_mcus, restart_interval,
-            _p(np.ascontiguousarray(dc_code, np.uint32), ctypes.c_uint32),
-            _p(np.ascontiguousarray(dc_len, np.uint8), ctypes.c_uint8),
-            _p(np.ascontiguousarray(ac_code, np.uint32), ctypes.c_uint32),
-            _p(np.ascontiguousarray(ac_len, np.uint8), ctypes.c_uint8),
-            _p(np.asarray(comp_tid, np.uint8), ctypes.c_uint8),
+            len(planes), mcus_x, n_mcus, restart_interval, *tables,
             _p(out, ctypes.c_uint8), seg_capacity,
             _p(seg_bytes, ctypes.c_int64), n_threads,
         )
@@ -982,3 +1035,174 @@ def native_encode_scan(planes, slots, comp_h, comp_v, mcus_x, n_mcus,
             ]
         seg_capacity *= 4
     raise RuntimeError("encode scan capacity overflow")
+
+
+def native_encode_scan(planes, slots, comp_h, comp_v, mcus_x, n_mcus,
+                       restart_interval, dc_code, dc_len, ac_code, ac_len,
+                       comp_tid, n_threads: int | None = None) -> list[bytes]:
+    """Entropy-encode quantized natural-order int16 planes -> per-restart-
+    segment byte strings (each byte-aligned; caller interleaves RST markers).
+
+    Parallel across segments. ``dc_code``/... are [2, 256] symbol tables
+    (uint32 codes / uint8 lengths), ``comp_tid`` the 0/1 selector per
+    component. Same contract as ``jpeg_tpu.runtime.native_encode_scan``.
+    """
+    # Worst case ~ stuffing-doubled 27 bits/coefficient.
+    tables = (
+        _p(np.ascontiguousarray(dc_code, np.uint32), ctypes.c_uint32),
+        _p(np.ascontiguousarray(dc_len, np.uint8), ctypes.c_uint8),
+        _p(np.ascontiguousarray(ac_code, np.uint32), ctypes.c_uint32),
+        _p(np.ascontiguousarray(ac_len, np.uint8), ctypes.c_uint8),
+        _p(np.asarray(comp_tid, np.uint8), ctypes.c_uint8))
+    return _encode_segments(load_encoder().jt_encode_scan, planes, slots,
+                            comp_h, comp_v, mcus_x, n_mcus, restart_interval,
+                            tables, 8, n_threads)
+
+
+def native_encode_arith_scan(planes, slots, comp_h, comp_v, mcus_x, n_mcus,
+                             restart_interval, comp_tid,
+                             n_threads: int | None = None) -> list[bytes]:
+    """Arithmetic (SOF9) entropy encode of natural-order int16 planes ->
+    per-restart-segment byte strings (QM coder, default conditioning L=0,
+    U=1, Kx=5; parallel across segments). Same contract as
+    ``jpeg_tpu.runtime.native_encode_arith_scan``."""
+    tables = (_p(np.asarray(comp_tid, np.uint8), ctypes.c_uint8),
+              _p(np.zeros(4, np.uint8), ctypes.c_uint8),
+              _p(np.ones(4, np.uint8), ctypes.c_uint8),
+              _p(np.full(4, 5, np.uint8), ctypes.c_uint8))
+    return _encode_segments(load_encoder().jt_encode_arith_scan, planes, slots,
+                            comp_h, comp_v, mcus_x, n_mcus, restart_interval,
+                            tables, 4, n_threads)
+
+
+def join_segments(chunks) -> bytes:
+    """Restart segments joined into a scan, RST0..7 markers between them."""
+    out = bytearray(chunks[0])
+    for i, c in enumerate(chunks[1:]):
+        out += bytes([0xFF, 0xD0 + (i % 8)])
+        out += c
+    return bytes(out)
+
+
+def native_encode_progressive_scans(comp_blocks_zz, samplings, mcus_x, mcus_y,
+                                    width, height, scan_script=None,
+                                    restart_interval=0) -> list[dict]:
+    """C++ twin of :func:`jpeg_tpu_torch.entropy.progressive_encode.
+    encode_progressive_scans` (byte-identical output): per scan a dict of
+    ``comps, ss, se, ah, al``, its optimal Huffman ``tables`` and its
+    entropy-coded ``data``. Each scan counts its symbols in one C++ pass
+    and emits in a second, segment by segment. Same contract as
+    ``jpeg_tpu.runtime.native_encode_progressive_scans``."""
+    from jpeg_tpu_torch.entropy.optimize import build_optimal_table
+    from jpeg_tpu_torch.entropy.progressive_encode import standard_scan_script
+
+    lib = load_encoder()
+    ct = ctypes
+    i64p, u32p = ct.POINTER(ct.c_int64), ct.POINTER(ct.c_uint32)
+    u8p, i32p = ct.POINTER(ct.c_uint8), ct.POINTER(ct.c_int32)
+    h_max = max(h for h, _ in samplings)
+    v_max = max(v for _, v in samplings)
+    states = [np.ascontiguousarray(b, dtype=np.int32) for b in comp_blocks_zz]
+
+    def comp_block_dims(ci):
+        h, v = samplings[ci]
+        cw = -(-width * h // h_max)
+        ch = -(-height * v // v_max)
+        return -(-ch // 8), -(-cw // 8)
+
+    def table_maps(table):
+        code = np.zeros(256, dtype=np.uint32)
+        length = np.zeros(256, dtype=np.uint8)
+        code[table.values] = table.codes.astype(np.uint32)
+        length[table.values] = table.lengths
+        return code, length
+
+    def segments(n_units):
+        ri = restart_interval or n_units
+        return [(u, min(u + ri, n_units)) for u in range(0, n_units, ri)]
+
+    scans = []
+    for comps, ss, se, ah, al in scan_script or standard_scan_script(
+            len(samplings)):
+        if ah and ah != al + 1:
+            raise ValueError(
+                f"refinement scan must step al by 1 (ah={ah}, al={al})")
+        if ss == 0:
+            interleaved = len(comps) > 1
+            if interleaved:
+                n_units, bw0 = mcus_x * mcus_y, 0
+            else:
+                bh, bw0 = comp_block_dims(comps[0])
+                n_units = bh * bw0
+            ptrs = (i32p * len(comps))(
+                *[_p(states[ci], ct.c_int32) for ci in comps])
+            # Columns in blocks (a row's stride is cols * 64 int32s).
+            cols = np.array([states[ci].shape[1] for ci in comps], np.int64)
+            ch = np.array([samplings[ci][0] for ci in comps], np.int32)
+            cv = np.array([samplings[ci][1] for ci in comps], np.int32)
+            bws = np.array([bw0], np.int64)
+            n_blocks_total = sum(
+                samplings[ci][0] * samplings[ci][1] for ci in comps
+            ) * (mcus_x * mcus_y)
+            cap = int(n_blocks_total * 6 + 64)
+            segs = segments(n_units)
+            tables = []
+            cptrs = ct.cast(None, ct.POINTER(u32p))
+            lptrs = ct.cast(None, ct.POINTER(u8p))
+            if ah == 0:
+                freqs = [np.zeros(256, np.int64) for _ in comps]
+                fptrs = (i64p * len(comps))(
+                    *[_p(f, ct.c_int64) for f in freqs])
+                for u0, u1 in segs:
+                    lib.jt_encode_prog_dc(
+                        ptrs, _p(cols, ct.c_int64), len(comps),
+                        _p(ch, ct.c_int32), _p(cv, ct.c_int32),
+                        mcus_x, u0, u1, int(interleaved), _p(bws, ct.c_int64),
+                        ah, al, 0, fptrs, cptrs, lptrs, ct.cast(None, u8p))
+                tables = [build_optimal_table(f) for f in freqs]
+                maps = [table_maps(t) for t in tables]
+                cptrs = (u32p * len(comps))(
+                    *[_p(m[0], ct.c_uint32) for m in maps])
+                lptrs = (u8p * len(comps))(
+                    *[_p(m[1], ct.c_uint8) for m in maps])
+            chunks = []
+            for u0, u1 in segs:
+                out = np.zeros(cap, np.uint8)
+                n = lib.jt_encode_prog_dc(
+                    ptrs, _p(cols, ct.c_int64), len(comps),
+                    _p(ch, ct.c_int32), _p(cv, ct.c_int32),
+                    mcus_x, u0, u1, int(interleaved), _p(bws, ct.c_int64),
+                    ah, al, 1, ct.cast(None, ct.POINTER(i64p)),
+                    cptrs, lptrs, _p(out, ct.c_uint8))
+                chunks.append(out[:n].tobytes())
+            scans.append(dict(
+                comps=comps, ss=ss, se=se, ah=ah, al=al,
+                tables=[("dc", si, t) for si, t in enumerate(tables)],
+                data=join_segments(chunks)))
+        else:
+            ci = comps[0]
+            bh, bw = comp_block_dims(ci)
+            segs = segments(bh * bw)
+            freq = np.zeros(256, np.int64)
+            for u0, u1 in segs:
+                lib.jt_encode_prog_ac(
+                    _p(states[ci], ct.c_int32), states[ci].shape[1], bw,
+                    u0, u1, ss, se, ah, al, 0, _p(freq, ct.c_int64),
+                    ct.cast(None, u32p), ct.cast(None, u8p),
+                    ct.cast(None, u8p))
+            table = build_optimal_table(freq)
+            code, length = table_maps(table)
+            cap = int(bh * bw * 64 * 6 + 64)
+            chunks = []
+            for u0, u1 in segs:
+                out = np.zeros(cap, np.uint8)
+                n = lib.jt_encode_prog_ac(
+                    _p(states[ci], ct.c_int32), states[ci].shape[1], bw,
+                    u0, u1, ss, se, ah, al, 1, ct.cast(None, i64p),
+                    _p(code, ct.c_uint32), _p(length, ct.c_uint8),
+                    _p(out, ct.c_uint8))
+                chunks.append(out[:n].tobytes())
+            scans.append(dict(comps=comps, ss=ss, se=se, ah=ah, al=al,
+                              tables=[("ac", 0, table)],
+                              data=join_segments(chunks)))
+    return scans

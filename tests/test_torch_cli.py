@@ -159,6 +159,13 @@ def test_decode_fast_path_ignores_exif_orientation(tmp_path, capsys):
     ["--subsampling", "444", "--quality", "93"],
     ["--subsampling", "422", "--optimize", "--restart-interval", "5"],
     ["--color", "cmyk"], ["--color", "ycck", "--restart-interval", "4"],
+    ["--precision", "12", "--subsampling", "422", "--restart-interval", "3"],
+    ["--precision", "12", "--arithmetic"],
+    ["--arithmetic", "--restart-interval", "2"],
+    ["--progressive", "--arithmetic"], ["--progressive", "--precision", "12"],
+    ["--progressive", "--subsampling", "444"],
+    ["--lossless", "--predictor", "5", "--restart-interval", "7"],
+    ["--lossless", "--precision", "12", "--predictor", "2"],
 ])
 def test_encode_bytes_equal(tmp_path, capsys, opts):
     """A P6 written by ``write_ppm`` (the port reads it with ``read_ppm``,
@@ -191,10 +198,18 @@ def test_encode_reads_other_formats_through_pil(tmp_path, capsys):
     (["--predictor", "3"], "item 7"),
 ])
 def test_unported_encode_options_raise_their_item(tmp_path, capsys, opts, item):
+    """The options that raised their ROADMAP item (``item``) until it was
+    ported now write the JAX CLI's bytes with its message. (``--predictor``
+    alone selects nothing without ``--lossless``, as in the JAX CLI.)"""
     src = str(tmp_path / "src.ppm")
     ppm.write_ppm(src, _image(2, (16, 16)))
-    with pytest.raises(NotImplementedError, match=item):
-        _ours(["encode", src, str(tmp_path / "o.jpg"), *opts], capsys)
+    ours, theirs = str(tmp_path / "o.jpg"), str(tmp_path / "t.jpg")
+    rc, msg = _ours(["encode", src, ours, *opts], capsys)
+    assert rc == 0, item
+    assert msg.replace(ours, "X") == _theirs(
+        ["encode", src, theirs, *opts], capsys)[1].replace(theirs, "X")
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_distributed_corpus_raises_its_item(tmp_path, capsys):
@@ -392,3 +407,31 @@ def test_python_m_runs_the_port_without_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code, src], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_twelve_bit_ppm_encode_and_decode(tmp_path, capsys):
+    """A maxval-4095 P6 encodes at ``--precision 12`` to the JAX CLI's
+    bytes; ``decode`` writes the 16-bit P6 the JAX CLI writes, within +-1
+    of its samples; a maxval-65535 P6 is refused by both."""
+    rng = np.random.default_rng(12)
+    img = (rng.integers(0, 4096, (24, 40, 3))).astype(np.uint16)
+    src = str(tmp_path / "src12.ppm")
+    ppm.write_ppm(src, img, maxval=4095)
+    ours, theirs = str(tmp_path / "o.jpg"), str(tmp_path / "t.jpg")
+    assert _ours(["encode", src, ours, "--precision", "12"], capsys)[0] == 0
+    _theirs(["encode", src, theirs, "--precision", "12"], capsys)
+    with open(ours, "rb") as f, open(theirs, "rb") as g:
+        assert f.read() == g.read()
+    out_o, out_t = str(tmp_path / "o.ppm"), str(tmp_path / "t.ppm")
+    assert _ours(["decode", ours, out_o, "--device", "cpu"], capsys)[0] == 0
+    _theirs(["decode", theirs, out_t], capsys)
+    got, gmax = ppm.read_ppm(out_o, return_maxval=True)
+    want, wmax = ref_ppm.read_ppm(out_t, return_maxval=True)
+    assert gmax == wmax and got.dtype == np.uint16
+    _within_one(got, want)
+    wide = str(tmp_path / "wide.ppm")
+    ppm.write_ppm(wide, img * 16, maxval=65535)
+    for run in (_ours, _theirs):
+        with pytest.raises(SystemExit, match="maxval-4095"):
+            run(["encode", wide, str(tmp_path / "x.jpg"), "--precision", "12"],
+                capsys)

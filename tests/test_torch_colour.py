@@ -163,8 +163,27 @@ def test_colour_ops_within_one_of_jax(rounding):
     np.testing.assert_array_equal(
         color.quantize_samples(t[0] + 128.0, rounding).numpy(),
         np.asarray(ref_color.quantize_samples(c + 128.0, rounding)))
-    with pytest.raises(NotImplementedError, match="12-bit"):
-        color.quantize_samples(t[0], rounding, maxval=4095)
+    # 12-bit samples (maxval 4095): u16, equal to the JAX narrowing and
+    # level shifts on planes spread over the 12-bit range.
+    wide = [p * 16.0 for p in (c, m, y)]
+    tw = [torch.from_numpy(p) for p in wide]
+    got = color.quantize_samples(tw[0] + 2048.0, rounding, maxval=4095)
+    assert got.dtype == torch.uint16
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        ref_color.quantize_samples(wide[0] + 2048.0, rounding, 4095)))
+    np.testing.assert_array_equal(
+        color.rgb_direct(*tw, rounding=rounding, maxval=4095)
+        .permute(1, 2, 0).numpy(),
+        np.asarray(ref_color.rgb_direct(*wide, rounding, 4095)))
+    np.testing.assert_array_equal(
+        color.grayscale_to_rgb(tw[0], rounding, 4095).permute(1, 2, 0).numpy(),
+        np.asarray(ref_color.grayscale_to_rgb(wide[0], rounding, 4095)))
+    got = color.ycbcr_to_rgb(*tw, rounding=rounding, maxval=4095)
+    assert got.dtype == torch.uint16
+    want = np.asarray(ref_color.ycbcr_to_rgb(*wide, rounding, 4095))
+    assert want.dtype == np.uint16
+    diff = np.abs(got.permute(1, 2, 0).numpy().astype(int) - want.astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.05
 
 
 def test_decode_plan_takes_upsample_and_color_space():

@@ -3,11 +3,12 @@
 
 The corpus mixes baseline Huffman frames with restart markers (which the
 hybrid route's device thread claims), progressive Huffman, SOF9, SOF10,
-progressive gray, CMYK, YCCK and RGB-direct streams, plus items that must
-become error records: bytes that are not a JPEG, a 12-bit stream and a
-lossless one. Each decoded item equals the single-image decode of its route:
-``decode_bytes(path="fast")`` for gray and YCbCr streams in the batched
-decoder (K1's twin), ``decode_bytes()`` (compat) for the others.
+progressive gray, CMYK, YCCK, RGB-direct, 12-bit and lossless streams, plus
+an item that must become an error record: bytes that are not a JPEG (the
+12-bit and lossless items were error records too until ROADMAP items 3b and
+7 were ported). Each decoded item equals the single-image decode of its
+route: ``decode_bytes(path="fast")`` for 8-bit gray and YCbCr streams in the
+batched decoder (K1's twin), ``decode_bytes()`` (compat) for the others.
 """
 
 import io
@@ -62,8 +63,8 @@ def _mixed():
         "rgb": (_pil(pimg, quality=85, keep_rgb=True), "compat"),
         "bad": (b"not a jpeg", "JPEGError"),
         "12-bit": (encode_rgb(img.astype(np.uint16) * 16, quality=90,
-                              precision=12, engine="python"), "12-bit"),
-        "lossless": (encode_lossless(img), "lossless"),
+                              precision=12, engine="python"), "compat"),
+        "lossless": (encode_lossless(img), "compat"),
     }
     # Baseline frames with restart markers last: the device thread claims
     # from the back.

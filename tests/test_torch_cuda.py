@@ -19,6 +19,7 @@ from jpeg_tpu_torch import (
     encode_rgb,
     encode_rgb_device,
 )
+from jpeg_tpu_torch.entropy import device_decode as v1
 from jpeg_tpu_torch.entropy import device_huffman as k3
 from jpeg_tpu_torch.entropy import device_kernel as k4
 from jpeg_tpu_torch.io.container import parse_jpeg
@@ -167,7 +168,7 @@ def test_k4_kernel_equals_plain_on_corrupt_streams(cuda, name, runner):
     assert torch.equal(err, plain_err)
     assert torch.equal(out, plain_out)
     got, gerr = k4.decode_coefficients_device4(base, device=cuda)
-    want, werr = k3.decode_coefficients_device_batch([base], device=cuda)
+    want, werr = v1.decode_coefficients_device_batch([base], device=cuda)
     assert not gerr.any() and not werr.any()
     np.testing.assert_array_equal(got, want[0].cpu().numpy())
 
@@ -572,3 +573,100 @@ def test_approx_corpus_on_card(cuda):
     assert all(r.ok for r in got)
     _within_twin_tolerance([r.rgb for r in got], [decode_bytes(
         data, path="fast", idct_mode="approx", device="cpu") for data in items])
+
+
+def _twelve_bit_stream(kind, sub=(2, 2)):
+    rng = np.random.default_rng(40)
+    img = rng.integers(0, 4096, (96, 128, 3)).astype(np.uint16)
+    if kind == "sof2":
+        return encoder.encode_rgb_progressive(img, subsampling=sub,
+                                              precision=12)
+    return encode_rgb(img, subsampling=sub, precision=12,
+                      arithmetic=kind == "sof9")
+
+
+def test_uint16_narrowing_on_card(cuda):
+    """The one u16 operation the 12-bit and lossless routes run on the card,
+    ``.to(torch.uint16)``, and its copy to the host."""
+    from jpeg_tpu_torch.ops.color import quantize_samples
+
+    x = torch.linspace(-50.0, 4200.0, 10007)
+    for rounding in ("truncate", "round"):
+        got = quantize_samples(x.to(cuda), rounding, 4095)
+        assert got.dtype == torch.uint16
+        assert torch.equal(got.cpu(), quantize_samples(x, rounding, 4095))
+        assert torch.equal(got.view(-1, 1).expand(-1, 3).cpu(),
+                           quantize_samples(x, rounding, 4095)
+                           .view(-1, 1).expand(-1, 3))
+
+
+@pytest.mark.parametrize("kind", ["sof1", "sof9", "sof2"])
+def test_twelve_bit_decode_on_card(cuda, kind):
+    """12-bit frames through the compat route on the card: u16 within +-1
+    of the CPU run on every sampling K1 does not take."""
+    for sub in ((1, 1), (2, 1), (2, 2)):
+        data = _twelve_bit_stream(kind, sub)
+        got = decode_bytes(data, device=cuda)
+        want = decode_bytes(data, device="cpu")
+        assert got.dtype == want.dtype == np.uint16
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+        assert np.array_equal(decode_bytes(data, path="fast", device=cuda), got)
+
+
+@pytest.mark.parametrize("predictor", [1, 2])
+def test_reconstruct_device_on_card(cuda, predictor):
+    """``reconstruct_device`` (two ``torch.cumsum`` mod 2^16) on the card
+    equals its CPU run and the sequential reconstruction, with a point
+    transform and 16-bit samples; ``decode_bytes`` too."""
+    from jpeg_tpu_torch.entropy import lossless
+
+    rng = np.random.default_rng(predictor)
+    img = rng.integers(0, 65536, (40, 56, 3)).astype(np.uint16)
+    data = lossless.encode_lossless(img, predictor=predictor,
+                                    point_transform=3, precision=16)
+    plan = parse_jpeg(data)
+    diffs = lossless.decode_diffs(plan)
+    got = lossless.reconstruct_device(plan, diffs, cuda)
+    assert got.device.type == cuda.type and got.dtype == torch.uint16
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), lossless.reconstruct_device(plan, diffs, "cpu").numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  lossless.reconstruct(plan, diffs))
+    np.testing.assert_array_equal(decode_bytes(data, device=cuda),
+                                  (img >> 3) << 3)
+
+
+def test_k3_names_on_card(cuda):
+    """Every device-entropy tier name launches K3 once and equals the v5
+    name on the card and the CPU run, bit for bit."""
+    from jpeg_tpu_torch.entropy import device_decode2 as v2
+    from jpeg_tpu_torch.entropy import device_window as v5
+
+    base = parse_jpeg(_read(SMALL[0]))
+    plans = [base, parse_jpeg(_read(SMALL[0]))]
+    want, werr = v5.decode_coefficients_device5_batch(plans, cuda,
+                                                      to_host=False)
+    cpu, cerr = v1.decode_coefficients_device_batch(plans, device="cpu")
+    assert torch.equal(werr.cpu(), cerr)
+    assert all(torch.equal(w.cpu(), c) for w, c in zip(want, cpu))
+
+    def window():
+        run, args, _meta = v5.window_runner_batch(plans, cuda)
+        coeffs, err = run(*args)
+        b = k3.prepare_lane_batch(plans)
+        return [coeffs[r0 : r0 + n] for r0, n in b.images], err
+
+    calls = [lambda: v1.decode_coefficients_device(base, device=cuda),
+             lambda: v1.decode_coefficients_device_batch(plans, device=cuda),
+             lambda: v2.decode_coefficients_device2(base, device=cuda),
+             lambda: v2.decode_coefficients_device3(base, device=cuda),
+             lambda: v2.decode_coefficients_device2_batch(plans, device=cuda),
+             window]
+    for call in calls:
+        before = k3.LAUNCHES.value
+        coeffs, err = call()
+        assert k3.LAUNCHES.value == before + 1
+        coeffs = coeffs if isinstance(coeffs, list) else [coeffs]
+        assert err.device.type == cuda.type
+        assert torch.equal(err, werr[: err.numel()])
+        assert all(torch.equal(c, w) for c, w in zip(coeffs, want))

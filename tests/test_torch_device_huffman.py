@@ -1,4 +1,5 @@
-"""K3 (device entropy) plain version vs jpeg_tpu's windowed Pallas decoder
+"""K3 (device entropy) plain version, under the v1 batch name
+(``entropy/device_decode.py``), vs jpeg_tpu's windowed Pallas decoder
 (interpret mode, one window covering every lane) vs the NumPy oracle: bit
 for bit, including error vectors on seeded corrupt streams."""
 
@@ -10,8 +11,10 @@ from jpeg_tpu.entropy.device_window import decode_coefficients_device5_batch
 from jpeg_tpu.entropy.oracle import decode_coefficients
 from jpeg_tpu.io.container import parse_jpeg as ref_parse
 from jpeg_tpu.models.encoder import encode_rgb
-from jpeg_tpu_torch.entropy.device_huffman import (
+from jpeg_tpu_torch.entropy.device_decode import (
     decode_coefficients_device_batch,
+)
+from jpeg_tpu_torch.entropy.device_huffman import (
     decode_lanes,
     lane_tables,
     prepare_lane_batch,

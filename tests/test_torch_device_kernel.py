@@ -15,7 +15,7 @@ from jpeg_tpu.entropy.oracle import decode_coefficients
 from jpeg_tpu.io.container import parse_jpeg as ref_parse
 from jpeg_tpu.models.encoder import encode_rgb
 from jpeg_tpu_torch.entropy import device_kernel as k4
-from jpeg_tpu_torch.entropy.device_huffman import decode_coefficients_device_batch
+from jpeg_tpu_torch.entropy.device_decode import decode_coefficients_device_batch
 from jpeg_tpu_torch.io.container import parse_jpeg, plan_from_reference
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),

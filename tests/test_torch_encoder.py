@@ -30,6 +30,7 @@ from jpeg_tpu.parallel.batch import encode_batch_device as ref_encode_batch
 from jpeg_tpu.runtime import native_encode_scan as ref_native_encode_scan
 from jpeg_tpu_torch import BatchedCorpusDecoder, decode_bytes
 from jpeg_tpu_torch.entropy import annex_k, optimize
+from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models import encoder as enc
 from jpeg_tpu_torch.ops import idct, zigzag
 from jpeg_tpu_torch.ops.fused_encode import (
@@ -285,17 +286,20 @@ def test_rejected_shapes_raise_value_error(entry, shape):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda img: enc.encode_rgb(img, arithmetic=True), "arithmetic"),
-    (lambda img: enc.encode_rgb(img.astype(np.uint16) * 16, precision=12),
+    (lambda m, img: m.encode_rgb(img, arithmetic=True), "arithmetic"),
+    (lambda m, img: m.encode_rgb(img.astype(np.uint16) * 16, precision=12),
      "12-bit"),
-    (lambda img: enc.encode_rgb_progressive(img, quality=85), "progressive"),
-    (lambda img: enc.encode_cmyk(np.zeros((8, 8, 4), np.uint8),
-                                 arithmetic=True), "CMYK"),
+    (lambda m, img: m.encode_rgb_progressive(img, quality=85), "progressive"),
+    (lambda m, img: m.encode_cmyk(np.zeros((8, 8, 4), np.uint8),
+                                  arithmetic=True), "CMYK"),
 ])
 def test_unported_routes_raise(call, match):
-    with pytest.raises(NotImplementedError, match=match) as err:
-        call(_image(24, 16, seed=0))
-    assert "ROADMAP.md" in str(err.value)
+    """The routes that raised ``NotImplementedError`` until ROADMAP item 3c
+    was ported (``match`` names each) now write the JAX package's bytes."""
+    img = _image(24, 16, seed=0)
+    got = call(enc, img)
+    assert got == call(ref_enc, img), match
+    assert parse_jpeg(got).components
 
 
 def test_bad_options_raise_value_error():

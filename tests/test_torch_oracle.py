@@ -215,8 +215,10 @@ def test_encode_cmyk_byte_identical(engine, ycck, restart):
 
 
 def test_encode_cmyk_refuses_what_the_port_lacks():
-    with pytest.raises(NotImplementedError, match="item 3c"):
-        encode_cmyk(_cmyk(0, (16, 16)), arithmetic=True)
+    """Arithmetic CMYK, once refused (ROADMAP item 3c), writes the JAX
+    package's bytes; bad shapes and engines are still refused."""
+    assert encode_cmyk(_cmyk(0, (16, 16)), arithmetic=True) == (
+        ref_enc.encode_cmyk(_cmyk(0, (16, 16)), arithmetic=True))
     with pytest.raises(ValueError, match="CMYK"):
         encode_cmyk(np.zeros((8, 8, 3), np.uint8))
     with pytest.raises(ValueError, match="engine"):

@@ -83,8 +83,11 @@ def test_hybrid_equals_host_route_with_isolation():
     assert dec.fallback_frames >= 1  # the poisoned item, claimed first
     assert not hyb[0].ok and "JPEGError" in hyb[0].error
     assert hyb[1].ok
-    assert not hyb[2].ok and "NotImplementedError" in hyb[2].error
-    assert "not ported" in hyb[2].error and "ROADMAP.md" in hyb[2].error
+    # The 12-bit item, once an error record, is decoded inline through the
+    # compat route: u16, equal to the single-image decode.
+    assert hyb[2].ok and hyb[2].rgb.dtype == np.uint16
+    np.testing.assert_array_equal(hyb[2].rgb,
+                                  decode_bytes(items[2], device="cpu"))
     assert not hyb[-1].ok and "NativeDecodeError" in hyb[-1].error
     for h, g in zip(host, hyb):
         assert h.ok == g.ok and h.error == g.error
@@ -207,8 +210,8 @@ def test_off_slice_options_raise(kwargs, match):
 
 
 def test_off_slice_streams_raise():
-    """Progressive and arithmetic streams, once refused, decode within
-    +-1 u8 of the JAX package on both paths; 12-bit streams still raise."""
+    """Progressive, arithmetic and (from ROADMAP item 3b) 12-bit streams,
+    once refused, decode within +-1 of the JAX package on both paths."""
     img = synthetic_image(48, 32, seed=3)
     streams = {
         "progressive": encode_rgb_progressive(img, quality=85),
@@ -220,5 +223,10 @@ def test_off_slice_streams_raise():
         for path in ("compat", "fast"):
             _within_one(decode_bytes(data, path=path, device="cpu"),
                         np.asarray(ref_decode_bytes(data, path=path)))
-    with pytest.raises(NotImplementedError, match="12-bit"):
-        decode_bytes(_twelve_bit(), device="cpu")
+    data = _twelve_bit()
+    for path in ("compat", "fast"):
+        got = decode_bytes(data, path=path, device="cpu")
+        want = np.asarray(ref_decode_bytes(data, path=path))
+        assert got.dtype == want.dtype == np.uint16
+        diff = np.abs(got.astype(int) - want.astype(int))
+        assert got.shape == want.shape and diff.max() <= 1
