@@ -1608,8 +1608,17 @@ def formats(dev, card: str) -> dict:
         route = ("cumsum on the card" if lossless.cumsum_takes(plan)
                  else "C++ jt_decode_lossless")
         routes[route] += 1
+        t0 = time.perf_counter()
         got = decode_bytes(data, device=dev)
-        oracle = lossless.reconstruct(plan, lossless.decode_diffs(plan))
+        times[f"lossless 512x384 RGB predictor {predictor}, restart "
+              f"interval {ri}: decode_bytes end to end ({route})"] = (
+                  time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        diffs = lossless.decode_diffs(plan)
+        times[f"lossless 512x384 RGB predictor {predictor}, restart "
+              f"interval {ri}: decode_diffs (pure Python, one call)"] = (
+                  time.perf_counter() - t0) * 1e3
+        oracle = lossless.reconstruct(plan, diffs)
         check(np.array_equal(got, decode_bytes(data, device="cpu"))
               and np.array_equal(got, runtime.native_decode_lossless(plan))
               and np.array_equal(got, oracle) and np.array_equal(got, small),

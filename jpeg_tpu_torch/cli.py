@@ -207,8 +207,7 @@ def cmd_corpus(args) -> int:
                                        w=int(rgb.shape[1]))
             except Exception as e:  # per-image error isolation (SURVEY.md §5)
                 # A build, launch or CUDA error is not the image's fault.
-                if isinstance(e, RuntimeError) and not isinstance(
-                        e, NotImplementedError):
+                if isinstance(e, RuntimeError):
                     raise
                 failed += 1
                 print(f"FAILED {p}: {e}", file=sys.stderr)

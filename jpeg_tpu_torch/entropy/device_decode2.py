@@ -35,11 +35,9 @@ def decode_coefficients_device3(plan: DecodePlan, luts=None, device="cuda"):
     """The v3 (pair-table) name -> (``[total_blocks, 64]`` int32,
     ``err [S]``) from K3 on ``device``; ``luts``, if given, must equal
     ``pair_luts(plan)[0]``."""
-    batch = device_huffman.prepare_lane_batch([plan])
     if luts is not None:
         check_luts(luts, pair_luts(plan)[0], "pair_luts")
-    coeffs, err = device_huffman.decode_prepared_batch(batch, device)
-    return coeffs[0], err
+    return decode_coefficients_device(plan, None, device)
 
 
 def decode_coefficients_device2_batch(plans: list, device="cuda"):

@@ -174,15 +174,11 @@ def decode_lossless(plan: DecodePlan, device="cuda",
         raise JPEGError("decode_lossless requires an SOF3 plan")
     if engine not in ("auto", "native", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
-    diffs = None
-    if device is not None:
-        diffs = decode_diffs(plan)
-        out = reconstruct_device(plan, diffs, device)
-        if out is not None:
-            return out.cpu().numpy()
+    if device is not None and cumsum_takes(plan):
+        return reconstruct_device(plan, decode_diffs(plan), device).cpu().numpy()
     if engine != "oracle":
         return native_decode_lossless(plan)
-    return reconstruct(plan, decode_diffs(plan) if diffs is None else diffs)
+    return reconstruct(plan, decode_diffs(plan))
 
 
 # ---------------------------------------------------------------------------

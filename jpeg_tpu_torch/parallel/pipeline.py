@@ -23,8 +23,9 @@ other failure (a kernel that does not build, a launch or CUDA error) raises
 out of :meth:`BatchedCorpusDecoder.decode_all`.
 
 Per-image isolation: an image that cannot be decoded becomes an error
-record and never stops the corpus. A build, launch or CUDA failure (a ``RuntimeError``
-other than ``NotImplementedError``) is not the image's fault and raises.
+record and never stops the corpus. A build, launch or CUDA failure (any
+``RuntimeError``, ``NotImplementedError`` for a dtype with no CUDA kernel
+among them) is not the image's fault and raises.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ def _read(item) -> bytes:
 def _error_text(e: Exception) -> str:
     """The error record of an image that failed; re-raises a failure that
     is not the image's (a build, launch or CUDA error)."""
-    if isinstance(e, RuntimeError) and not isinstance(e, NotImplementedError):
+    if isinstance(e, RuntimeError):
         raise e
     return f"{type(e).__name__}: {e}"
 

@@ -218,6 +218,22 @@ def test_distributed_corpus_raises_its_item(tmp_path, capsys):
               capsys)
 
 
+def test_corpus_raises_a_device_not_implemented_error(tmp_path, capsys,
+                                                     monkeypatch):
+    """The per-image loop records an image's own error as FAILED, but a
+    ``NotImplementedError`` from PyTorch (an op with no CUDA kernel for a
+    dtype) is a device failure and raises."""
+    from jpeg_tpu_torch.models import decoder
+
+    def boom(*args, **kwargs):
+        raise NotImplementedError("simulated: no CUDA kernel for UInt16")
+
+    monkeypatch.setattr(decoder, "decode_file", boom)
+    d = _corpus_dir(tmp_path, n=1)
+    with pytest.raises(NotImplementedError, match="UInt16"):
+        _ours(["corpus", d, "--device", "cpu"], capsys)
+
+
 def _corpus_dir(tmp_path, n=6):
     d = tmp_path / "corpus"
     d.mkdir()

@@ -148,6 +148,21 @@ def test_corpus_decoder_does_not_hide_a_device_failure(monkeypatch):
             [_pil(Image.fromarray(synthetic_image(32, 32, 1)).convert("CMYK"))])
 
 
+def test_corpus_decoders_raise_a_device_not_implemented_error(monkeypatch):
+    """PyTorch raises ``NotImplementedError`` (a ``RuntimeError``) for an op
+    with no CUDA kernel for a dtype: a device failure, not the image's, so
+    it leaves ``decode_all`` instead of becoming an error record."""
+    def boom(*args, **kwargs):
+        raise NotImplementedError("simulated: no CUDA kernel for UInt16")
+
+    monkeypatch.setattr(pipeline, "decode_plan", boom)
+    with pytest.raises(NotImplementedError, match="UInt16"):
+        CorpusDecoder(workers=1, device="cpu").decode_all(_mixed()[0][:1])
+    with pytest.raises(NotImplementedError, match="UInt16"):
+        BatchedCorpusDecoder(workers=1, device="cpu").decode_all(
+            [_pil(Image.fromarray(synthetic_image(32, 32, 1)).convert("CMYK"))])
+
+
 def test_corpus_decoder_options():
     with pytest.raises(ValueError, match="path"):
         CorpusDecoder(path="slow", device="cpu")
