@@ -5,10 +5,11 @@
 
 Builds the C++ entropy runtime and entropy encoder (the port's own copies
 of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``) and
-the five CUDA libraries (K1-K6, K1a with K1) from this checkout (all at
+the six CUDA libraries (K1-K7, K1a with K1) from this checkout (all at
 once), checks each kernel against its plain PyTorch version at the shapes
 its path gives it (K1, its approx tier K1a and K2 on every sampling they
-take, K3 and K4 on corrupt streams and eight 4K frames; K1a, whose IDCT
+take, K3 and K4 on corrupt streams and eight 4K frames, K7 on a 4K frame
+without restart markers and at 512x384; K1a, whose IDCT
 runs on the tensor cores, to the tolerance of their order of sums, the
 others bit for bit), shows that K1a's machine code holds tensor-core
 instructions (HMMA) and K1's none, holds K1a within the approx gate of K1
@@ -48,6 +49,17 @@ K1; the progressive and SOF9 frames share the baseline frames' K1 bucket)
 and through ``CorpusDecoder`` on both paths, each item held to its route's
 ``decode_bytes`` on the card.
 
+The ``speculative`` phase drives the speculative chunk-lane decode
+(``entropy/device_spec.py``: K7's phase A on the card, the host merge with
+C++ gap recovery, the relocate on the card) on a 3840x2160 q85 4:2:0 frame
+without restart markers, encoded by the port: at 2,048 and 1,024 lanes and
+with an overlap of 2 MCUs (gap recovery), each bit for bit with the C++
+decoder, and on the restart-per-row 4K fixture (several segments merged);
+K7 equals its plain twin at 512x384 and at 4K; the phase times K7, the
+control arrays' copy, the merge, the relocate and the whole call beside the
+C++ speculative decode and K3 on the same frame, and K7's byte and serial
+bounds.
+
 Two phases cover the rest of the format matrix. ``entropy_names`` runs
 the main path's claim (eight 4K frames, 1,080 lanes) through K3 under every
 device-entropy tier name of the JAX package (v1, v2, v3, the v2 batch and
@@ -82,8 +94,10 @@ result line, and when no CUDA device is present.
 A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (inputs read once, outputs written once) over the
 H100 SXM's 3.35 TB/s and its operations at the rate of their type: fp32
-over 67 TFLOP/s, K1a's bf16 tensor-core products over 989 TFLOP/s (K3 and
-K4 do integer work, for which the data sheet gives no rate: bytes only).
+over 67 TFLOP/s, K1a's bf16 tensor-core products over 989 TFLOP/s (K3, K4
+and K7 do integer work, for which the data sheet gives no rate: bytes only;
+K7's record adds a serial bound, its longest lane's symbols at ~240 cycles
+each).
 ``library_ms`` is one PyTorch route to the same function where there is
 one (K5 and K6: cuDNN convolution + pixel shuffle), timed and never used.
 
@@ -136,6 +150,13 @@ RESTART_4K = 240  # MCUs per restart interval: one per MCU row of a 4K frame
 K3_FRAMES = (1, 8, 32)  # 4K frames per timed K3 launch (135 lanes each)
 K3_INPUTS = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
              "skip", "pair", "skip_hv", "skip_canon", "skip_slots")
+K7_INPUTS = ("data", "bit_start", "chunk_end_bit", "seg_end_bit", "skip",
+             "skip_hv", "skip_canon", "skip_slots")
+# K7's serial bound: a lane's symbols one after another, each step about
+# 240 cycles (K3's pass 1 on this card, PERF.md section 7), at the SM's
+# 1,980 MHz boost clock (H100 SXM data sheet).
+K7_CYCLES_PER_STEP = 240
+SM_CLOCK_HZ = 1.98e9
 # K1 buckets beyond the main path's: luma (h, v) over 1x1 chroma, and gray.
 K1_SAMPLINGS = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2),
                 "4x1": (4, 1), "4x4": (4, 4), "gray": None}
@@ -375,6 +396,7 @@ def run() -> list[dict]:
     from jpeg_tpu_torch import encode_rgb, runtime
     from jpeg_tpu_torch.entropy import device_huffman as k3
     from jpeg_tpu_torch.entropy import device_kernel as k4
+    from jpeg_tpu_torch.entropy import device_spec as k7
     from jpeg_tpu_torch.io.container import parse_jpeg
     from jpeg_tpu_torch.models.decoder import (
         coefficient_planes_from_blocks,
@@ -408,6 +430,7 @@ def run() -> list[dict]:
               ("K2 fused_encode.cu (nvcc sm_90a)", k2.load_kernel),
               ("K3 huffman_lanes.cu (nvcc sm_90a)", k3.load_kernel),
               ("K4 huffman_words.cu (nvcc sm_90a)", k4.load_kernel),
+              ("K7 huffman_spec.cu (nvcc sm_90a)", k7.load_kernel),
               ("K5/K6 idct_only.cu (nvcc sm_90a)", k56.load_kernel))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
@@ -593,6 +616,11 @@ def run() -> list[dict]:
     k3_names = entropy_names(plans4k, dev)
     print(f"entropy-names phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 4c. K7: the speculative chunk-lane decode of a frame without restarts.
+    t0 = time.perf_counter()
+    k7_rec = speculative(dev, card)
+    print(f"speculative phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 5. The main path: hybrid corpus decode.
     items = [read(SMALL_NO_RST), read(SMALL_RST[1])] + [
         read(FRAMES_4K[i % 2]) for i in range(CORPUS_4K)]
@@ -742,6 +770,7 @@ def run() -> list[dict]:
          "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bnd, "library_ms": None,
          "frames": 1, "ms_8_frames": k4_8,
          "bound_ms_8_frames": k4_8_bnd["bound_ms"]},
+        k7_rec,
         {"name": "K5 idct_only", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:362", **k5},
@@ -1405,6 +1434,175 @@ def entropy_names(plans, dev) -> dict:
     return launches
 
 
+def k7_lane_symbols(out, n_dec, bpm: int):
+    """Huffman symbols each lane of K7 decoded in whole MCUs, counted from
+    its coefficient rows: per block the DC code, one code per non-zero AC
+    coefficient, a ZRL per 16 zeros before one, and EOB unless coefficient
+    63 is non-zero. A lane's serial chain is one step a symbol."""
+    import torch
+
+    n_lanes, rows, _ = out.shape
+    dev = out.device
+    ac = out[..., 1:] != 0
+    idx = torch.arange(1, 64, device=dev, dtype=torch.int16)
+    at = torch.where(ac, idx, torch.zeros((), dtype=torch.int16, device=dev))
+    last = at.amax(-1)
+    prev = torch.cummax(at, -1).values
+    prev = torch.cat([torch.zeros_like(prev[..., :1]), prev[..., :-1]], -1)
+    zrl = torch.where(ac, (idx - prev - 1) // 16, 0).sum(-1)
+    per_row = 1 + ac.sum(-1) + zrl + (last < 63).to(zrl.dtype)
+    decoded = (torch.arange(rows, device=dev)[None, :]
+               < (n_dec.to(torch.int64) * bpm)[:, None])
+    return (per_row * decoded).sum(-1)
+
+
+def speculative(dev, card: str) -> dict:
+    """K7 and the speculative chunk-lane decode around it, on one 3840x2160
+    q85 4:2:0 frame without restart markers written by the port's encoder:
+    ``decode_coefficients_device_spec`` at 2,048 and 1,024 lanes (overlap
+    24) and at 2,048 lanes with overlap 2 (gap recovery on the host), each
+    with the K7 counter set to 0 just before it and read just after, each
+    bit for bit with the C++ ``native_decode_coefficients``; the 4K
+    restart-per-row fixture at 2,048 lanes (several segments merged); K7
+    against its plain twin on every element of its four outputs, at 512x384
+    (64 lanes, overlap 24 and 2) and once at 4K (2,048 lanes). Prints
+    lanes, cap and gap MCUs, and the median times of K7 (CUDA events,
+    queued, the zeroing of its outputs included), the control arrays' one
+    device-to-host copy, the host merge, the relocate and the whole call
+    (host clock; the overlap-2 call's merge and whole call timed once after
+    a warm-up), beside ``native_decode_planes(speculative=True)`` and K3
+    (one lane: the scan is one segment) on the same frame, and K7's byte
+    and serial bounds. Returns K7's record for the kernels line."""
+    import torch
+
+    from jpeg_tpu_torch import encode_rgb, runtime
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.entropy import device_spec as k7
+    from jpeg_tpu_torch.io.container import parse_jpeg
+
+    t0 = time.perf_counter()
+    data = encode_rgb(synthetic_image(3840, 2160, seed=0), quality=QUALITY,
+                      subsampling=(2, 2), restart_interval_mcus=0)
+    plan = parse_jpeg(data)
+    check(len(plan.segments) == 1,
+          f"speculative: 4K frame encoded by the port, {len(data)} bytes, no "
+          f"restart marker ({time.perf_counter() - t0:.1f} s host clock)")
+    want = runtime.native_decode_coefficients(plan, reuse_buffer=False)
+    n_comp, bpm, n_bytes = len(plan.components), plan.blocks_per_mcu, len(
+        plan.scan_data)
+    runs = {}
+    for label, lanes, overlap in (("2048 lanes", 2048, 24),
+                                  ("1024 lanes", 1024, 24),
+                                  ("2048 lanes overlap 2", 2048, 2)):
+        k7.LAUNCHES.reset()
+        torch.cuda.synchronize()
+        coeffs, stats = k7.decode_coefficients_device_spec(
+            plan, lanes, overlap, device=dev)
+        torch.cuda.synchronize()
+        launches = k7.LAUNCHES.value
+        check(launches == 1 and coeffs is not None
+              and coeffs.device.type == "cuda"
+              and np.array_equal(coeffs.cpu().numpy(), want)
+              and (overlap > 2 or stats["gap_mcus"] > 0),
+              f"speculative, {label}: K7 launched {launches} time(s), {stats}, "
+              "== C++ native_decode_coefficients bit for bit"
+              + (", gap recovery ran" if overlap == 2 else ""))
+        # The gap-heavy call is host-bound at ~0.7 s: one timed rep there.
+        reps = 3 if overlap > 2 else 1
+        whole = host_ms(lambda: k7.decode_coefficients_device_spec(
+            plan, lanes, overlap, device=dev), reps)
+        ls, ce, se, groups = k7._chunk_lanes(plan, lanes)
+        cap = k7.spec_cap(groups, overlap)
+        t = k7.spec_tensors(plan, ls, ce, se, dev)
+        ms = cuda_ms(lambda: k7.spec_lanes(t, n_bytes, cap, overlap, n_comp),
+                     5, 1, queued=True)
+        out, *ctrl = k7.spec_lanes(t, n_bytes, cap, overlap, n_comp)
+        d2h = host_ms(lambda: k7.control_to_host(*ctrl))
+        host = k7.control_to_host(*ctrl)
+        merge = host_ms(lambda: k7.merge_lanes(
+            plan, groups, *host, cap, {"merged": 0, "failed": 0, "gap_mcus": 0}),
+            reps)
+        merged = k7.merge_lanes(plan, groups, *host, cap,
+                                {"merged": 0, "failed": 0, "gap_mcus": 0})
+        reloc = host_ms(lambda: k7.relocate(plan, out, *merged))
+        zero = cuda_ms(lambda: torch.zeros_like(out), 5, 1, queued=True)
+        symbols = k7_lane_symbols(out, ctrl[2], bpm)
+        n_bytes_moved = nbytes(*(t[k] for k in K7_INPUTS), out, *ctrl)
+        bnd = bound(n_bytes_moved)
+        serial = float(symbols.max()) * K7_CYCLES_PER_STEP / SM_CLOCK_HZ * 1e3
+        runs[label] = dict(cap=cap, stats=stats, launches=launches, ms=ms,
+                           bnd=bnd, serial=serial, t=t)
+        print(f"speculative, {label} ({card}): lanes {stats['lanes']}, cap "
+              f"{cap}, gap_mcus {stats['gap_mcus']}, merged {stats['merged']}; "
+              f"median ms: K7 {ms:.4f} (its outputs' zeroing alone {zero:.4f}; "
+              f"CUDA events, queued), control-array D2H {d2h:.3f}, host merge "
+              f"{merge:.3f}, relocate {reloc:.3f}, whole call {whole:.3f} (host "
+              f"clock); K7 {share(ms, bnd)} ({n_bytes_moved / 1e6:.1f} MB); "
+              f"serial bound {serial:.4f} ms (longest lane "
+              f"{int(symbols.max())} symbols, mean {float(symbols.float().mean()):.0f}, "
+              f"x {K7_CYCLES_PER_STEP} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz)",
+              flush=True)
+        del out, ctrl, coeffs
+    # The restart-per-row fixture: chunk lanes inside each of its segments.
+    rst = parse_jpeg(read(FRAMES_4K[0]))
+    k7.LAUNCHES.reset()
+    coeffs, stats = k7.decode_coefficients_device_spec(rst, 2048, device=dev)
+    torch.cuda.synchronize()
+    check(k7.LAUNCHES.value == 1 and coeffs is not None and stats["merged"] > 1
+          and np.array_equal(coeffs.cpu().numpy(),
+                             runtime.native_decode_coefficients(rst)),
+          f"speculative, restart-per-row 4K fixture: {stats}, == C++ "
+          "native_decode_coefficients bit for bit")
+    del coeffs
+    # K7 against its plain twin: 512x384 (64 lanes), then once at 4K.
+    small = parse_jpeg(read(SMALL_NO_RST))
+    for overlap in (24, 2):
+        ls, ce, se, groups = k7._chunk_lanes(small, 64)
+        cap = k7.spec_cap(groups, overlap)
+        t = k7.spec_tensors(small, ls, ce, se, dev)
+        args = (t, len(small.scan_data), cap, overlap, len(small.components))
+        got, want_p = k7.spec_lanes(*args), k7.spec_lanes_plain(*args)
+        check(all(torch.equal(g, w) for g, w in zip(got, want_p)),
+              f"K7 vs plain, 512x384, 64 lanes, overlap {overlap}: out, "
+              "mcu_bits, dc_cum and n_dec equal in every element")
+    main = runs["2048 lanes"]
+    args = (main["t"], n_bytes, main["cap"], 24, n_comp)
+    got = k7.spec_lanes(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_p = k7.spec_lanes_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = [int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+            for g, w in zip(got, want_p)]
+    check(max(errs) == 0,
+          f"K7 vs plain, 4K, 2048 lanes: every element of the four outputs "
+          f"equal (plain {plain_ms:.1f} ms, host clock, {card})")
+    del got, want_p
+    # For comparison: the host's speculative decode, and K3 with one lane.
+    planes_ms = host_ms(lambda: runtime.native_decode_planes(plan,
+                                                             speculative=True))
+    batch = k3.prepare_lane_batch([plan])
+    lanes3 = k3.lane_tensors(batch, dev)
+    k3_ms = cuda_ms(lambda: k3.decode_lanes(lanes3, 1, batch.total_rows), 3, 1,
+                    queued=True)
+    print(f"speculative, same frame ({card}): C++ native_decode_planes("
+          f"speculative=True) {planes_ms:.3f} ms ({os.cpu_count()} threads, "
+          f"host clock); K3, one lane (the scan is one segment), "
+          f"{k3_ms:.3f} ms (CUDA events)", flush=True)
+    return {"name": "K7 huffman_spec", "route": "cuda",
+            "source": "jpeg_tpu_torch/csrc/huffman_spec.cu",
+            "replaces": "jpeg_tpu/entropy/device_spec.py:83",
+            "launches": main["launches"], "max_abs_err": max(errs),
+            "ms": main["ms"], "plain_ms": plain_ms, **main["bnd"],
+            "bound_serial_ms": main["serial"], "library_ms": None,
+            "lanes": main["stats"]["lanes"], "cap": main["cap"],
+            "launches_by_call": {k: r["launches"] for k, r in runs.items()},
+            "ms_by_call": {k: r["ms"] for k, r in runs.items()},
+            "gap_mcus_by_call": {k: r["stats"]["gap_mcus"]
+                                 for k, r in runs.items()}}
+
+
 def stream_blocks(comp_blocks_zz, geom) -> np.ndarray:
     """An encoder's per-component quantized zigzag blocks [rows, cols, 64]
     -> [total_blocks, 64] in MCU stream order (the decoder's layout)."""
@@ -1841,9 +2039,11 @@ def kernel_times(package_dir: str) -> None:
     ``package_dir``, built and timed alone at the smoke's shapes (K1, and
     K1a where the package has it, at 8 and 62 4K frames; K2, K4 at 1 and 8;
     K3 at 1, 8 and 32; K5 and K6 at
-    [4096, 3840], also one launch at a time after an L2 flush), launches
-    queued in a row behind a busy card so the wrappers' host time stays out;
-    then the two passes of K3 and K4 apart. Prints one line per time."""
+    [4096, 3840], also one launch at a time after an L2 flush; K7, where the
+    package has it, on a 4K frame without restart markers at 2,048 lanes),
+    launches queued in a row behind a busy card so the wrappers' host time
+    stays out; then the two passes of K3 and K4 apart, and K7's kernel
+    without its outputs' zeroing. Prints one line per time."""
     sys.path.insert(0, package_dir)
     import torch
 
@@ -1856,10 +2056,15 @@ def kernel_times(package_dir: str) -> None:
     from jpeg_tpu_torch.ops import fused_plane as k1
     from jpeg_tpu_torch.ops import idct_only as k56
 
+    try:
+        from jpeg_tpu_torch.entropy import device_spec as k7
+    except ImportError:  # a checkout from before K7
+        k7 = None
+
     dev = torch.device("cuda")
     print(f"package: {os.path.dirname(os.path.abspath(jpeg_tpu_torch.__file__))}")
     loads = (runtime.load, k1.load_kernel, k2.load_kernel, k3.load_kernel,
-             k4.load_kernel, k56.load_kernel)
+             k4.load_kernel, k56.load_kernel) + ((k7.load_kernel,) if k7 else ())
     with ThreadPoolExecutor(len(loads)) as pool:
         for fut in [pool.submit(load) for load in loads]:
             fut.result()
@@ -1906,17 +2111,33 @@ def kernel_times(package_dir: str) -> None:
     for n, run, args in ((1, run_1, args_1), (BATCH, run_n, args_n)):
         ms = cuda_ms(lambda: run(*args), 10, 2, inner=2, queued=True)
         print(f"times K4 {n}x4K: {ms:.4f} ms", flush=True)
-    # The two passes of K3 and K4 apart, from a profiler trace of five
-    # launches each (device time by kernel name).
+    profiled = []
+    if k7 is not None:  # a frame without restart markers, 2,048 lanes
+        spec = parse_jpeg(jpeg_tpu_torch.encode_rgb(
+            synthetic_image(3840, 2160, seed=0), quality=QUALITY,
+            subsampling=(2, 2), restart_interval_mcus=0))
+        ls, ce, se, groups = k7._chunk_lanes(spec, 2048)
+        cap = k7.spec_cap(groups, k7.OVERLAP_MCUS)
+        t7 = k7.spec_tensors(spec, ls, ce, se, dev)
+        args_7 = (t7, len(spec.scan_data), cap, k7.OVERLAP_MCUS,
+                  len(spec.components))
+        ms = cuda_ms(lambda: k7.spec_lanes(*args_7), 10, 2, inner=5,
+                     queued=True)
+        print(f"times K7 1x4K, 2048 lanes: {ms:.4f} ms (its outputs' zeroing "
+              "included)", flush=True)
+        profiled.append(("K7 1x4K", lambda: k7.spec_lanes(*args_7)))
+    # The two passes of K3 and K4 apart, and K7's kernel without the zeroing
+    # of its outputs, from a profiler trace of five launches each (device
+    # time by kernel name).
     from torch.profiler import ProfilerActivity, profile
 
     one = k3.prepare_lane_batch(plans[:1])
     lanes_1 = k3.lane_tensors(one, dev)
-    for label, fn in (
+    for label, fn in [
             ("K3 1x4K", lambda: k3.decode_lanes(lanes_1, len(one.lane_start),
                                                 one.total_rows)),
             ("K4 1x4K", lambda: run_1(*args_1)),
-            (f"K4 {BATCH}x4K", lambda: run_n(*args_n))):
+            (f"K4 {BATCH}x4K", lambda: run_n(*args_n))] + profiled:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -1925,7 +2146,8 @@ def kernel_times(package_dir: str) -> None:
         found = {}
         for ev in prof.key_averages():
             t = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-            for name in ("boundary_pass", "block_pass", "huffman_words_kernel"):
+            for name in ("boundary_pass", "block_pass", "huffman_words_kernel",
+                         "spec_lanes"):
                 if name in ev.key and t and ev.count:
                     found[name] = t / ev.count / 1e3
         print(f"passes {label}: " + (", ".join(

@@ -1,8 +1,10 @@
-// Device code shared by the two Huffman kernels, K3 (huffman_lanes.cu, byte
-// streams) and K4 (huffman_words.cu, word columns): the host-built tables'
-// entry formats, the canonical walk for codes longer than 11 bits, Table F.2
-// sign extension, and the bodies of the two passes, each a template over the
-// kernel's bit reader.
+// Device code shared by the Huffman kernels, K3 (huffman_lanes.cu, byte
+// streams), K4 (huffman_words.cu, word columns) and K7 (huffman_spec.cu,
+// speculative chunk lanes): the host-built tables' entry formats, the
+// canonical walk for codes longer than 11 bits, Table F.2 sign extension,
+// the byte-stream reader of K3 and K7, and the bodies of the two passes,
+// each a template over the kernel's bit reader (K7 decodes with pass 2's
+// DC and AC parts, dc_entry and decode_ac).
 //
 // A reader R holds a lane's bits left-aligned in a 64-bit buffer `buf` and
 // offers
@@ -100,6 +102,70 @@ struct Tables {
     }
     return 0;
   }
+};
+
+// K3's and K7's reader: a lane's bytes, then 0xAA fill bytes forever. A
+// refill, below 43 bits, tops up to 56-63 bits from the bytes loaded at the
+// last refill and loads the next ones.
+struct ByteReader {
+  const uint8_t* p;
+  int len;       // segment bytes; past them the stream reads 0xAA
+  int pos;       // bytes moved into buf, fill bytes included
+  int cnt;       // valid bits in buf
+  uint64_t buf;
+  uint32_t w0, w1, w2;  // the aligned words holding bytes pos .. pos + 7
+  int sh;               // 8 x the offset of byte pos in w0
+
+  // Three aligned 4-byte loads around byte `pos`, clamped to the segment
+  // end (the caller pads the data by 16 bytes).
+  __device__ __forceinline__ void fetch() {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(p + min(pos, len));
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(at & ~uintptr_t{3});
+    sh = static_cast<int>(at & 3) * 8;
+    w0 = __ldg(a);
+    w1 = __ldg(a + 1);
+    w2 = __ldg(a + 2);
+  }
+  // Bytes pos .. pos + 7, big-endian, 0xAA past the segment end.
+  __device__ __forceinline__ uint64_t window() const {
+    const uint32_t x0 = __byte_perm(__funnelshift_r(w0, w1, sh), 0, 0x0123);
+    const uint32_t x1 = __byte_perm(__funnelshift_r(w1, w2, sh), 0, 0x0123);
+    const uint64_t be = (static_cast<uint64_t>(x0) << 32) | x1;
+    const int avail = len - pos;
+    const uint64_t keep = avail >= 8 ? ~uint64_t{0}
+                          : avail <= 0 ? uint64_t{0}
+                                       : ~uint64_t{0} << (64 - 8 * avail);
+    return (be & keep) | (0xAAAAAAAAAAAAAAAAull & ~keep);
+  }
+  __device__ __forceinline__ void refill() {
+    if (cnt < 43) {
+      buf |= window() >> cnt;
+      pos += (63 - cnt) >> 3;
+      cnt |= 56;
+      fetch();
+    }
+  }
+  __device__ __forceinline__ void start(const uint8_t* data, int n, int bit) {
+    p = data;
+    len = n;
+    pos = bit >> 3;
+    cnt = 0;
+    buf = 0;
+    fetch();
+    refill();
+    consume(bit & 7);
+  }
+  __device__ __forceinline__ uint32_t top11() const {
+    return static_cast<uint32_t>(buf >> 53);
+  }
+  __device__ __forceinline__ uint32_t peek32() const {
+    return static_cast<uint32_t>(buf >> 32);
+  }
+  __device__ __forceinline__ void consume(int n) {
+    buf <<= n;
+    cnt -= n;
+  }
+  __device__ __forceinline__ int consumed_bits() const { return pos * 8 - cnt; }
 };
 
 // Shared-memory layout of both passes: the table rows, then the small tables.
@@ -230,6 +296,49 @@ __device__ __forceinline__ int walk_lane(R& br, const Tables& t,
   return blk;
 }
 
+// The skip entry of the DC code at reader `br` (0 for an invalid prefix),
+// the reader refilled and nothing consumed.
+template <class R>
+__device__ __forceinline__ uint32_t dc_entry(R& br, const Tables& t,
+                                             uint32_t tab, int dcrow) {
+  uint32_t e = lds32(tab + 4 * (dcrow * kT11 + br.top11()));
+  br.refill();
+  if (e == 0) {
+    int sym = 0;
+    const int length = t.walk(dcrow, br.peek32(), &sym);
+    e = make_entry(length, sym, true);
+  }
+  return e;
+}
+
+// A block's AC symbols from reader `br` just after its DC code: every
+// non-zero coefficient to out[k * kStride] (zigzag index k; the caller
+// zeroed the column). Returns false at an invalid prefix, keeping what it
+// wrote.
+template <int kStride, class R>
+__device__ __forceinline__ bool decode_ac(R& br, const Tables& t, uint32_t tab,
+                                          int acrow, int32_t* out) {
+  int k = 1;
+  while (k < 64) {
+    uint32_t e = lds32(tab + 4 * (acrow * kT11 + br.top11()));
+    br.refill();
+    if (e == 0) {
+      int sym = 0;
+      const int length = t.walk(acrow, br.peek32(), &sym);
+      e = make_entry(length, sym, false);
+    }
+    if (e == 0) return false;
+    const int adv = static_cast<int>(e >> 24);
+    // EOB and ZRL carry no magnitude bits: they store a zero at a
+    // position not yet written (>= k).
+    out[min(k + adv - 1, 63) * kStride] =
+        magnitude(br.buf, (e >> 8) & 0x1F, (e >> 16) & 0x1F);
+    br.consume(e & 0x3F);
+    k = min(k + adv, 64);
+  }
+  return true;
+}
+
 // Pass 2 for one block: from reader `br` at the block's start bit, write
 // the DC predictor `pred` and every non-zero AC coefficient to
 // out[k * kStride] (zigzag index k; the caller zeroed the column). Stops at
@@ -239,32 +348,10 @@ __device__ __forceinline__ void decode_block(R& br, const Tables& t,
                                              uint32_t tab, int dcrow, int acrow,
                                              int32_t pred, int32_t* out) {
   out[0] = pred;
-  uint32_t e = lds32(tab + 4 * (dcrow * kT11 + br.top11()));
-  br.refill();
-  int sym = 0, length = 0;
-  if (e == 0) {
-    length = t.walk(dcrow, br.peek32(), &sym);
-    e = make_entry(length, sym, true);
-  }
+  const uint32_t e = dc_entry(br, t, tab, dcrow);
   if (e == 0) return;
   br.consume(e & 0x3F);
-  int k = 1;
-  while (k < 64) {
-    e = lds32(tab + 4 * (acrow * kT11 + br.top11()));
-    br.refill();
-    if (e == 0) {
-      length = t.walk(acrow, br.peek32(), &sym);
-      e = make_entry(length, sym, false);
-    }
-    if (e == 0) break;
-    const int adv = static_cast<int>(e >> 24);
-    // EOB and ZRL carry no magnitude bits: they store a zero at a
-    // position not yet written (>= k).
-    out[min(k + adv - 1, 63) * kStride] =
-        magnitude(br.buf, (e >> 8) & 0x1F, (e >> 16) & 0x1F);
-    br.consume(e & 0x3F);
-    k = min(k + adv, 64);
-  }
+  decode_ac<kStride>(br, t, tab, acrow, out);
 }
 
 // Lanes per warp of pass 1: the fewest (a power of two) that keep the launch

@@ -23,9 +23,10 @@
 // order); err [lanes] u8. Every output byte is written exactly once, so the
 // caller allocates both uninitialised.
 //
-// The pass bodies (walk_lane, decode_block) and the table formats live in
-// huffman_common.cuh, shared with K4; this file holds the byte-stream reader,
-// the two kernels' frames and the launcher.
+// The pass bodies (walk_lane, decode_block), the table formats and the
+// byte-stream reader (ByteReader, shared with K7) live in
+// huffman_common.cuh, shared with K4; this file holds the two kernels'
+// frames and the launcher.
 //
 // Pass 1, the boundary walk (boundary_pass): one thread per lane. It decodes
 // no coefficient values. Its two loops (blocks, AC symbols) are one loop
@@ -35,7 +36,7 @@
 // shared-memory lookup in a table built on the host (per 11-bit peek: bits
 // consumed and advance of k, for two AC symbols at once where both lie
 // within the peek and the first leaves the block open), one 64-bit shift,
-// a refill from bytes loaded at the previous refill (Reader); the canonical
+// a refill from bytes loaded at the previous refill (ByteReader); the canonical
 // walk only for codes longer than 11 bits. The table row of the next step
 // is one select; the DC predictor lives in shared memory. Per block it
 // stores one 16-byte record (start bit, DC predictor after the block,
@@ -65,70 +66,6 @@ constexpr int kRowThreads = 256;  // pass 2: eight warps per block
 constexpr int kStage = 68;        // staging row stride in i32 (16-byte rows)
 constexpr int kWarps = kRowThreads / 32;
 
-// A lane's bits, left-aligned in a 64-bit buffer (the reader interface of
-// huffman_common.cuh). A refill, below 43 bits, tops up to 56-63 bits from
-// the bytes loaded at the last refill and loads the next ones.
-struct Reader {
-  const uint8_t* p;
-  int len;       // segment bytes; past them the stream reads 0xAA
-  int pos;       // bytes moved into buf, fill bytes included
-  int cnt;       // valid bits in buf
-  uint64_t buf;
-  uint32_t w0, w1, w2;  // the aligned words holding bytes pos .. pos + 7
-  int sh;               // 8 x the offset of byte pos in w0
-
-  // Three aligned 4-byte loads around byte `pos`, clamped to the segment
-  // end (the caller pads the data by 16 bytes).
-  __device__ __forceinline__ void fetch() {
-    const uintptr_t at = reinterpret_cast<uintptr_t>(p + min(pos, len));
-    const uint32_t* a = reinterpret_cast<const uint32_t*>(at & ~uintptr_t{3});
-    sh = static_cast<int>(at & 3) * 8;
-    w0 = __ldg(a);
-    w1 = __ldg(a + 1);
-    w2 = __ldg(a + 2);
-  }
-  // Bytes pos .. pos + 7, big-endian, 0xAA past the segment end.
-  __device__ __forceinline__ uint64_t window() const {
-    const uint32_t x0 = __byte_perm(__funnelshift_r(w0, w1, sh), 0, 0x0123);
-    const uint32_t x1 = __byte_perm(__funnelshift_r(w1, w2, sh), 0, 0x0123);
-    const uint64_t be = (static_cast<uint64_t>(x0) << 32) | x1;
-    const int avail = len - pos;
-    const uint64_t keep = avail >= 8 ? ~uint64_t{0}
-                          : avail <= 0 ? uint64_t{0}
-                                       : ~uint64_t{0} << (64 - 8 * avail);
-    return (be & keep) | (0xAAAAAAAAAAAAAAAAull & ~keep);
-  }
-  __device__ __forceinline__ void refill() {
-    if (cnt < 43) {
-      buf |= window() >> cnt;
-      pos += (63 - cnt) >> 3;
-      cnt |= 56;
-      fetch();
-    }
-  }
-  __device__ __forceinline__ void start(const uint8_t* data, int n, int bit) {
-    p = data;
-    len = n;
-    pos = bit >> 3;
-    cnt = 0;
-    buf = 0;
-    fetch();
-    refill();
-    consume(bit & 7);
-  }
-  __device__ __forceinline__ uint32_t top11() const {
-    return static_cast<uint32_t>(buf >> 53);
-  }
-  __device__ __forceinline__ uint32_t peek32() const {
-    return static_cast<uint32_t>(buf >> 32);
-  }
-  __device__ __forceinline__ void consume(int n) {
-    buf <<= n;
-    cnt -= n;
-  }
-  __device__ __forceinline__ int consumed_bits() const { return pos * 8 - cnt; }
-};
-
 __global__ void __launch_bounds__(kWalkThreads)
 boundary_pass(const uint8_t* __restrict__ data,
               const int64_t* __restrict__ lane_start,
@@ -154,7 +91,7 @@ boundary_pass(const uint8_t* __restrict__ data,
       (blockIdx.x * (kWalkThreads / 32) + (threadIdx.x >> 5)) * lanes_per_warp +
       in_warp;
   if (in_warp >= lanes_per_warp || lane >= n_lanes) return;
-  Reader br;
+  ByteReader br;
   br.start(data + lane_start[lane], lane_len[lane], 0);
   const int nblk = lane_nblk[lane];
   int4* rec = meta + lane_out[lane];
@@ -202,7 +139,7 @@ block_pass(const uint8_t* __restrict__ data,
     const int64_t row = row0 + tid;
     const int4 m = row < total_rows ? meta[row] : make_int4(0, 0, 0, -1);
     if (m.w >= 0) {
-      Reader br;
+      ByteReader br;
       br.start(data + lane_start[m.z], lane_len[m.z], m.x);
       decode_block<1>(br, t, tab, t.dcrow[m.w], t.acrow[m.w], m.y,
                       stage + tid * kStage);

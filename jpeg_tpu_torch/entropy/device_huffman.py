@@ -297,11 +297,50 @@ def _magnitude(peek, length, nbits):
     return torch.where(nbits > 0, val, 0)
 
 
+def decode_block_plain(data, start, length, bitpos, active, dc_tab, ac_tab):
+    """One block on every ``active`` lane, all in lockstep: the DC symbol,
+    then AC symbols until every lane's block is done. ``dc_tab`` and
+    ``ac_tab`` are (lut row, huffval row, canon row) of :func:`lane_tables`.
+    Returns (block [S, 64] int64 zigzag, the DC difference at 0 (0 where the
+    DC code was invalid); bad [S], the lanes that hit an invalid prefix in
+    it; bitpos after it). A bad lane's block keeps what it decoded."""
+    n_lanes = bitpos.shape[0]
+    lanes = torch.arange(n_lanes, device=bitpos.device)
+    block = torch.zeros((n_lanes, 64), dtype=torch.int64, device=bitpos.device)
+    peek = _peek32(data, start, length, bitpos)
+    ln, size = _resolve(*dc_tab, peek)
+    bad = active & (ln == 0)
+    ok = active & ~bad
+    size = torch.where(ok, size, 0)
+    block[:, 0] = _magnitude(peek, ln, size)
+    bitpos = bitpos + torch.where(ok, ln + size, 0)
+    coef = torch.where(ok, 1, 64)
+    while True:
+        busy = active & ~bad & (coef < 64)
+        if not bool(busy.any()):
+            break
+        peek = _peek32(data, start, length, bitpos)
+        ln, sym = _resolve(*ac_tab, peek)
+        bad_ac = busy & (ln == 0)
+        go = busy & ~bad_ac
+        eob, zrl = sym == 0x00, sym == 0xF0
+        nbits = torch.where(eob | zrl, 0, sym & 0xF)
+        val = _magnitude(peek, ln, nbits)
+        pos = coef + torch.minimum((sym >> 4) & 0xF, 63 - coef)
+        write = go & ~eob & ~zrl
+        block[lanes[write], pos[write]] = val[write]
+        coef_next = torch.where(
+            eob, 64, torch.where(zrl, (coef + 16).clamp(max=64), pos + 1))
+        coef = torch.where(go, coef_next, coef)
+        bitpos = bitpos + torch.where(go, ln + nbits, 0)
+        bad = bad | bad_ac
+    return block, bad, bitpos
+
+
 def decode_lanes_plain(t: dict, n_lanes: int, total_rows: int):
     """Plain PyTorch K3 over the tensors of :func:`lane_tensors`: all lanes
-    step through their blocks in lockstep; within a block, AC symbols repeat
-    until every lane is done. Returns (coeffs [total_rows, 64] i32,
-    err [S] bool)."""
+    step through their blocks in lockstep (:func:`decode_block_plain`).
+    Returns (coeffs [total_rows, 64] i32, err [S] bool)."""
     dev = t["data"].device
     i64 = torch.int64
     start, length = t["lane_start"], t["lane_len"].to(i64)
@@ -314,44 +353,18 @@ def decode_lanes_plain(t: dict, n_lanes: int, total_rows: int):
     bitpos = torch.zeros(n_lanes, dtype=i64, device=dev)
     err = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
     dc = torch.zeros((4, n_lanes), dtype=i64, device=dev)
-    lanes = torch.arange(n_lanes, device=dev)
     max_blk = int(nblk.max()) if n_lanes else 0
     for k in range(max_blk):
         active = ~err & (k < nblk)
         if not bool(active.any()):
             break
         comp, dcr, acr = slots[k % bpm]
-        acr += 4
-        block = torch.zeros((n_lanes, 64), dtype=i64, device=dev)
-        peek = _peek32(t["data"], start, length, bitpos)
-        ln, size = _resolve(lut[dcr], hv[dcr], canon[dcr], peek)
-        bad = active & (ln == 0)
-        ok = active & ~bad
-        size = torch.where(ok, size, 0)
-        diff = _magnitude(peek, ln, size)
-        bitpos = bitpos + torch.where(ok, ln + size, 0)
+        block, bad, bitpos = decode_block_plain(
+            t["data"], start, length, bitpos, active,
+            (lut[dcr], hv[dcr], canon[dcr]),
+            (lut[4 + acr], hv[4 + acr], canon[4 + acr]))
         err = err | bad
-        coef = torch.where(ok, 1, 64)
-        while True:
-            busy = active & ~err & (coef < 64)
-            if not bool(busy.any()):
-                break
-            peek = _peek32(t["data"], start, length, bitpos)
-            ln, sym = _resolve(lut[acr], hv[acr], canon[acr], peek)
-            bad = busy & (ln == 0)
-            go = busy & ~bad
-            eob, zrl = sym == 0x00, sym == 0xF0
-            nbits = torch.where(eob | zrl, 0, sym & 0xF)
-            val = _magnitude(peek, ln, nbits)
-            pos = coef + torch.minimum((sym >> 4) & 0xF, 63 - coef)
-            write = go & ~eob & ~zrl
-            block[lanes[write], pos[write]] = val[write]
-            coef_next = torch.where(
-                eob, 64, torch.where(zrl, (coef + 16).clamp(max=64), pos + 1))
-            coef = torch.where(go, coef_next, coef)
-            bitpos = bitpos + torch.where(go, ln + nbits, 0)
-            err = err | bad
-        dc[comp] = dc[comp] + torch.where(active, diff, 0)
+        dc[comp] = dc[comp] + torch.where(active, block[:, 0], 0)
         block[:, 0] = dc[comp]
         rows = out_row[active] + k
         coeffs[rows] = block[active].to(torch.int32)

@@ -158,15 +158,18 @@ def reconstruct_device(plan: DecodePlan, diffs: np.ndarray, device="cuda"):
     return (((rec & M16) << pt) & M16).to(torch.uint16)
 
 
-def decode_lossless(plan: DecodePlan, device="cuda",
+def decode_lossless(plan: DecodePlan, device=None,
                     engine: str = "auto") -> np.ndarray:
     """SOF3 scan -> ``[H, W, ncomp]`` uint16 samples (numpy).
 
-    ``device`` (default ``"cuda"``): decode the differences with
-    :func:`decode_diffs` and reconstruct predictor-1/2 restart-free scans
-    with :func:`reconstruct_device` there (the JAX package's
-    ``device=True``); other scans take ``engine``. ``device=None`` is the
-    JAX package's ``device=False``: ``engine`` alone. ``engine``:
+    ``device=None`` (the default, the JAX package's ``device=False``):
+    ``engine`` alone. This is the one entry point of the port whose device
+    defaults to none: the JAX ``device`` is a route switch, and its default
+    is the host route. A ``device`` (``"cuda"``, ``"cpu"``): decode the
+    differences with :func:`decode_diffs` and reconstruct predictor-1/2
+    restart-free scans with :func:`reconstruct_device` there (the JAX
+    package's ``device=True``, which ``decode_plan`` passes); other scans
+    take ``engine``. ``engine``:
     ``"auto"`` or ``"native"`` (C++ ``jt_decode_lossless``: differences
     parallel over restart segments, prediction in order; a failed build
     raises) or ``"oracle"`` (:func:`reconstruct`)."""

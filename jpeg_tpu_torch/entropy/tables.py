@@ -141,3 +141,12 @@ def value_correction(val: int, nbits: int) -> int:
     if val < base:
         return val - 2 * base + 1
     return val
+
+
+def value_correction_np(vals: np.ndarray, nbits: np.ndarray) -> np.ndarray:
+    """Vectorized Table F.2 sign extension (int32)."""
+    vals = vals.astype(np.int32)
+    nbits = nbits.astype(np.int32)
+    base = np.where(nbits > 0, 1 << np.maximum(nbits - 1, 0), 0)
+    out = np.where((nbits > 0) & (vals < base), vals - 2 * base + 1, vals)
+    return np.where(nbits > 0, out, 0)

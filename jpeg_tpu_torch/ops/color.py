@@ -7,7 +7,8 @@ JAX package). The reference
 derives G from the already computed R and B (``src/jpeg/decoder.rs:392-402``);
 the operations run in that order, in float32, so the truncate mode matches
 the reference bit for bit. K1 (``csrc/fused_plane.cu``) repeats the same
-order with round-to-nearest intrinsics.
+order with round-to-nearest intrinsics. :func:`ycbcr_to_rgb_matrix` is a
+NumPy copy of the JAX module's [3, 3] form of the same algebra.
 
 - ``rounding="truncate"``: clamp to [0, 255], then truncate (Rust ``as u8``).
 - ``rounding="round"``: ``floor(x + 0.5)`` first (libjpeg-like).
@@ -15,6 +16,7 @@ order with round-to-nearest intrinsics.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 C_RED = 0.299
@@ -25,6 +27,28 @@ C_BLUE = 0.114
 # float64 expression).
 K_RED = torch.tensor(2.0 - 2.0 * C_RED, dtype=torch.float32).item()
 K_BLUE = torch.tensor(2.0 - 2.0 * C_BLUE, dtype=torch.float32).item()
+
+
+def ycbcr_to_rgb_matrix(dtype=np.float32) -> np.ndarray:
+    """[3, 3] M with rgb = M @ (y, cb, cr) for *centered* (un-level-shifted)
+    planes; add 128 afterwards. Mirrors the reference's exact algebra:
+    r = (2-2*cr_w)*cr + y; b = (2-2*cb_w)*cb + y; g = (y - cb_w*b - cr_w*r)/g_w.
+    """
+    r_cr = 2.0 - 2.0 * C_RED
+    b_cb = 2.0 - 2.0 * C_BLUE
+    # g = (y - C_BLUE*b - C_RED*r)/C_GREEN with r, b substituted:
+    g_y = (1.0 - C_BLUE - C_RED) / C_GREEN
+    g_cb = -C_BLUE * b_cb / C_GREEN
+    g_cr = -C_RED * r_cr / C_GREEN
+    m = np.array(
+        [
+            [1.0, 0.0, r_cr],
+            [g_y, g_cb, g_cr],
+            [1.0, b_cb, 0.0],
+        ],
+        dtype=np.float64,
+    )
+    return m.astype(dtype)
 
 
 def quantize_u8(x: torch.Tensor, rounding: str = "truncate") -> torch.Tensor:

@@ -4,8 +4,9 @@ their plain versions use; the compat decode's
 fused [64, 64] dequant + unzigzag + IDCT matrix; the host encoder's forward
 DCT matrix.
 
-Copies of ``jpeg_tpu.ops.idct.dct_basis_1d``, ``fused_idct_matrix`` and
-``forward_dct_matrix``. K1, K2, K5 and K6 run the separable 8x8 transform
+Copies of ``jpeg_tpu.ops.idct.dct_basis_1d``, ``fused_idct_matrix``,
+``forward_dct_matrix`` and the direct-formula test twins
+``idct_block_naive`` / ``dct_block_naive``. K1, K2, K5 and K6 run the separable 8x8 transform
 with this basis in fp32; the compat decode multiplies by the fused matrix.
 """
 
@@ -100,6 +101,53 @@ def idct_blocks_plain(f: torch.Tensor, a: torch.Tensor,
     if bf16:
         t = bf16_round(t)
     return idct_rows_plain(t, a)
+
+
+def idct_block_naive(block_nat: np.ndarray) -> np.ndarray:
+    """Direct-formula scalar IDCT of one natural-order [64] block (float32).
+
+    Test-only parity twin of reference
+    ``discrete_cosine_transform_inverse`` (``src/transform.rs:55-87``).
+    """
+    f = np.asarray(block_nat, dtype=np.float32).reshape(8, 8)
+    out = np.zeros((8, 8), dtype=np.float32)
+    alpha = np.ones(8, dtype=np.float32)
+    alpha[0] = np.float32(1.0 / np.sqrt(2.0))
+    for y in range(8):
+        for x in range(8):
+            s = np.float32(0.0)
+            for v in range(8):
+                for u in range(8):
+                    s += (
+                        alpha[u]
+                        * alpha[v]
+                        * f[v, u]
+                        * np.float32(np.cos((2 * x + 1) * u * np.pi / 16))
+                        * np.float32(np.cos((2 * y + 1) * v * np.pi / 16))
+                    )
+            out[y, x] = s / 4
+    return out.reshape(64)
+
+
+def dct_block_naive(pixels_nat: np.ndarray) -> np.ndarray:
+    """Forward DCT of one [64] block — parity twin of the reference's unused
+    forward transform (``src/transform.rs:18-53``), used by the encoder tests."""
+    g = np.asarray(pixels_nat, dtype=np.float32).reshape(8, 8)
+    out = np.zeros((8, 8), dtype=np.float32)
+    alpha = np.ones(8, dtype=np.float32)
+    alpha[0] = np.float32(1.0 / np.sqrt(2.0))
+    for v in range(8):
+        for u in range(8):
+            s = np.float32(0.0)
+            for y in range(8):
+                for x in range(8):
+                    s += (
+                        g[y, x]
+                        * np.float32(np.cos((2 * x + 1) * u * np.pi / 16))
+                        * np.float32(np.cos((2 * y + 1) * v * np.pi / 16))
+                    )
+            out[v, u] = alpha[u] * alpha[v] * s / 4
+    return out.reshape(64)
 
 
 def forward_dct_matrix(dtype=np.float32) -> np.ndarray:

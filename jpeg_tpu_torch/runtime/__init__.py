@@ -9,7 +9,10 @@ library (``jpeg_tpu_torch/runtime/native/jpegtpu.cpp``, a verbatim copy of
 - ``jt_decode_scan_planes``: restart-segment-parallel Huffman decode into
   per-component natural-order int16 planes (the layout K1 reads);
 - ``jt_decode_scan_planes_spec``: the speculative self-synchronising decode
-  of a single-segment scan, used for multi-threaded single-image decode;
+  of a single-segment scan, used for multi-threaded single-image decode,
+  its chunk count tuned by measurement (``_spec_chunks``);
+- ``jt_decode_gap``: sequential MCU decode from any bit position up to a
+  recorded stop, the gap recovery of ``entropy/device_spec.py``;
 - ``jt_unstuff_scan``: byte unstuffing and restart split for large scans;
 - progressive scans (``jt_decode_prog_dc`` / ``_ac``, arithmetic
   ``jt_decode_arith_prog_dc`` / ``_ac``) into per-component coefficient
@@ -33,13 +36,15 @@ compiler or a failed build raises; there is no numpy fallback on this path.
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from jpeg_tpu_torch.utils.build import GXX_FLAGS, load_library
+from jpeg_tpu_torch.utils.build import BUILD_DIR, GXX_FLAGS, BuildError, load_library
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 SOURCE = os.path.join(NATIVE_DIR, "jpegtpu.cpp")
@@ -83,6 +88,15 @@ def _configure(lib: ctypes.CDLL) -> None:
         u8p, u8p, ctypes.c_int32,  # comp dc/ac ids, n_comp
         u16p, u16p,  # packed dc/ac LUTs
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,  # out, n_threads
+    ]
+    lib.jt_decode_gap.restype = ctypes.c_int64
+    lib.jt_decode_gap.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int64,  # data, start_bit, end_byte
+        i64p, ctypes.c_int64, ctypes.c_int64,  # stop_bits, n_stop, max_mcus
+        u8p, ctypes.c_int32,  # slot_comp, blocks_per_mcu
+        u8p, u8p, ctypes.c_int32,  # comp dc/ac ids, n_comp
+        u16p, u16p,  # packed dc/ac LUTs
+        ctypes.POINTER(ctypes.c_int32), i64p,  # out blocks, out positions
     ]
     lib.jt_decode_scan_planes.restype = ctypes.c_int64
     lib.jt_decode_scan_planes.argtypes = [
@@ -196,6 +210,16 @@ def load() -> ctypes.CDLL:
     return load_library("jpegtpu", ["g++", *GXX_FLAGS], [SOURCE], _configure)
 
 
+def native_available() -> bool:
+    """Whether the C++ runtime builds and loads here (it is built at the
+    first call)."""
+    try:
+        load()
+        return True
+    except (OSError, BuildError):
+        return False
+
+
 def _p(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
@@ -215,7 +239,7 @@ def _plane_args(plan):
     segs = plan.segments
     slots = plan.component_block_slots()
     comps = plan.components
-    shapes = _plane_shapes(plan)
+    shapes = plane_shapes(plan)
     cached = dict(
         data=np.ascontiguousarray(plan.scan_data, dtype=np.uint8),
         seg_start=np.array([s.byte_start for s in segs], np.int64),
@@ -239,16 +263,123 @@ def _plane_args(plan):
     return cached
 
 
+_spec_tuner: dict = {}
+_spec_tuner_lock = threading.Lock()
+_SPEC_TUNER_PATH = os.path.join(BUILD_DIR, "spec_tuner.json")
+
+
+def _spec_key(plan):
+    return (plan.width, plan.height, len(plan.components),
+            int(len(plan.scan_data)) >> 18)
+
+
+def _spec_persist_key(key) -> str:
+    # Keyed on the library's path as well, whose name carries a hash of the
+    # C++ source and the compiler command (a rebuild invalidates old
+    # choices), and on the core count.
+    return (f"{key}|cores={os.cpu_count()}|"
+            f"so={os.path.basename(load()._name)}")
+
+
+def _spec_persist_load(key):
+    try:
+        with open(_SPEC_TUNER_PATH) as f:
+            return json.load(f).get(_spec_persist_key(key))
+    except (OSError, ValueError):
+        return None
+
+
+def _spec_persist_store(key, chosen: int) -> None:
+    try:
+        try:
+            with open(_SPEC_TUNER_PATH) as f:
+                d = json.load(f)
+        except (OSError, ValueError):
+            d = {}
+        d[_spec_persist_key(key)] = chosen
+        os.makedirs(os.path.dirname(_SPEC_TUNER_PATH), exist_ok=True)
+        tmp = _SPEC_TUNER_PATH + f".tmp{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(d, f)
+        os.replace(tmp, _SPEC_TUNER_PATH)
+    except OSError:
+        pass  # persistence is best-effort
+
+
+def _spec_chunks(plan, n_threads: int) -> int:
+    """Chunk count of the speculative decode of a single-segment scan,
+    tuned by measurement (``jpeg_tpu.runtime._spec_chunks``): per
+    (geometry, scan size) class the first calls trial the candidates
+    4, 6 and 8 x ``n_threads`` in turn, two timed calls each (the caller
+    reports wall time through :func:`_spec_feedback`), then the fastest is
+    kept. The choice persists to ``build/spec_tuner.json`` keyed on the
+    geometry, the core count and the library; a process that loads one
+    still runs one confirmation trial per candidate, so that its snapshot
+    carries times measured under its own conditions."""
+    with _spec_tuner_lock:
+        key = _spec_key(plan)
+        st = _spec_tuner.get(key)
+        if st is None:
+            cands = sorted({4 * n_threads, 6 * n_threads, 8 * n_threads})
+            persisted = _spec_persist_load(key)
+            st = {"cands": cands, "times": {k: [] for k in cands},
+                  "chosen": persisted, "i": 0,
+                  "confirm": len(cands) if persisted is not None else 0}
+            _spec_tuner[key] = st
+        if st["chosen"] is not None:
+            if st["confirm"] > 0:
+                st["confirm"] -= 1
+                return st["cands"][st["confirm"] % len(st["cands"])]
+            return st["chosen"]
+        cands = st["cands"]
+        if all(len(st["times"][k]) >= 2 for k in cands):
+            st["chosen"] = min(
+                cands, key=lambda k: sorted(st["times"][k])[0])
+            _spec_persist_store(key, st["chosen"])
+            return st["chosen"]
+        k = cands[st["i"] % len(cands)]
+        st["i"] += 1
+        return k
+
+
+def _spec_feedback(plan, k: int, dt: float) -> None:
+    """Record one speculative decode's wall time ``dt`` (s) at ``k`` chunks,
+    while trialling and during the confirmation pass."""
+    with _spec_tuner_lock:
+        st = _spec_tuner.get(_spec_key(plan))
+        if st is not None and k in st["times"]:
+            st["times"][k].append(dt)
+
+
+def spec_tuner_snapshot() -> dict:
+    """The tuner's state for benchmark records: per geometry key, the
+    chosen chunk count and each candidate's best trial time (ms)."""
+    with _spec_tuner_lock:
+        return {
+            str(key): {
+                "chosen": st["chosen"],
+                "best_ms": {
+                    str(k): (round(min(v) * 1e3, 3) if v else None)
+                    for k, v in st["times"].items()
+                },
+            }
+            for key, st in _spec_tuner.items()
+        }
+
+
 def native_decode_planes(plan, n_threads: int | None = None,
-                         reuse_buffer: bool = True) -> list[np.ndarray]:
+                         reuse_buffer: bool = True,
+                         speculative: bool | None = None,
+                         n_chunks: int | None = None) -> list[np.ndarray]:
     """Threaded entropy decode into per-component natural-order int16 planes
-    in the padded layout of :func:`jpeg_tpu_torch.ops.fused_plane.
-    padded_plane_shapes` (pad regions zero).
+    in the padded layout of :func:`plane_shapes` (pad regions zero).
 
     Restart-segmented scans decode segment-parallel. A single-segment scan
-    of at least 64 KB with ``n_threads > 1`` decodes speculatively in
-    ``4 * n_threads`` chunks (bit-identical: a broken sync link falls back
-    to sequential decode inside the library).
+    decodes speculatively (bit-identical: a broken sync link falls back to
+    sequential decode inside the library) when ``speculative`` is true, or,
+    with ``speculative=None``, when the scan holds at least 64 KB and
+    ``n_threads > 1``; in ``n_chunks`` chunks, or as many as
+    :func:`_spec_chunks` measures best.
 
     With ``reuse_buffer`` (default) the planes are this thread's scratch
     buffers, overwritten by its next same-geometry call: consume or copy
@@ -273,10 +404,17 @@ def native_decode_planes(plan, n_threads: int | None = None,
         _p(a["rows"], ctypes.c_int64), prezero,
     )
     data = a["data"]
-    if len(plan.segments) == 1 and data.size >= 65536 and n_threads > 1:
+    if speculative is None:
+        speculative = (len(plan.segments) == 1 and data.size >= 65536
+                       and n_threads > 1)
+    if speculative and len(plan.segments) == 1:
+        k = n_chunks if n_chunks else _spec_chunks(plan, n_threads)
+        t0 = time.perf_counter()
         err = lib.jt_decode_scan_planes_spec(
             _p(data, ctypes.c_uint8), data.size, plan.n_mcus, *common,
-            4 * n_threads, n_threads)
+            k, n_threads)
+        if n_chunks is None:
+            _spec_feedback(plan, k, time.perf_counter() - t0)
     else:
         err = lib.jt_decode_scan_planes(
             _p(data, ctypes.c_uint8), data.size,
@@ -335,6 +473,34 @@ def native_decode_coefficients(plan, n_threads: int | None = None,
     return out
 
 
+def native_decode_gap(plan, start_bit: int, end_byte: int,
+                      stop_bits: np.ndarray, max_mcus: int):
+    """Sequential MCU decode from bit ``start_bit`` of the scan, stopping
+    before an MCU that starts at a position in ``stop_bits`` (sorted i64)
+    or after ``max_mcus`` MCUs; the scan reads as 0xAA from ``end_byte``
+    on. The gap recovery of :mod:`jpeg_tpu_torch.entropy.device_spec`.
+    Returns (blocks ``[n, bpm, 64]`` int32 zigzag with RAW DC deltas, pos
+    ``[n]`` int64 bit position after each MCU), or None at an invalid
+    prefix."""
+    lib = load()
+    a = _plane_args(plan)
+    bpm = plan.blocks_per_mcu
+    stops = np.ascontiguousarray(stop_bits, dtype=np.int64)
+    out = np.empty((max_mcus * bpm, 64), dtype=np.int32)
+    pos = np.empty(max_mcus, dtype=np.int64)
+    n = lib.jt_decode_gap(
+        _p(a["data"], ctypes.c_uint8), start_bit, end_byte,
+        _p(stops, ctypes.c_int64), len(stops), max_mcus,
+        _p(a["slot_comp"], ctypes.c_uint8), bpm,
+        _p(a["comp_dc"], ctypes.c_uint8), _p(a["comp_ac"], ctypes.c_uint8),
+        len(plan.components),
+        _p(a["dc_luts"], ctypes.c_uint16), _p(a["ac_luts"], ctypes.c_uint16),
+        _p(out, ctypes.c_int32), _p(pos, ctypes.c_int64))
+    if n < 0:
+        return None
+    return out[: n * bpm].reshape(n, bpm, 64), pos[:n]
+
+
 def native_decode_lossless(plan, n_threads: int | None = None) -> np.ndarray:
     """Lossless (SOF3) decode -> ``[H, W, ncomp]`` uint16 samples, the
     contract of :func:`jpeg_tpu_torch.entropy.lossless.decode_lossless`:
@@ -362,7 +528,7 @@ def native_decode_lossless(plan, n_threads: int | None = None) -> np.ndarray:
     return out
 
 
-def _plane_shapes(plan) -> list[tuple[int, int]]:
+def plane_shapes(plan) -> list[tuple[int, int]]:
     """K1's padded [rows, stride] per component (the layout every plane
     decoder here writes)."""
     from jpeg_tpu_torch.models.decoder import PipelineGeometry
@@ -810,7 +976,7 @@ def native_decode_progressive_planes(plan, n_threads: int | None = None
     if straggler is not None:
         straggler["join"]()
     slot_comp, slot_vi, slot_hi, comp_h, comp_v = _prog_slot_arrays(plan)
-    shapes = _plane_shapes(plan)
+    shapes = plane_shapes(plan)
     planes, pptrs, fresh = _thread_planes(shapes)
     if not fresh:
         # The assembly writes every block of the MCU area; a reused buffer
@@ -875,7 +1041,7 @@ def native_decode_arith_planes(plan, n_threads: int | None = None,
     (data, seg_start, seg_end, seg_mcu_start, seg_mcu_count, slot_comp,
      slot_vi, slot_hi, comp_dc, comp_ac, comp_h, comp_v,
      dc_L, dc_U, ac_K) = _arith_args(plan)
-    shapes = _plane_shapes(plan)
+    shapes = plane_shapes(plan)
     planes, ptrs, fresh = _thread_planes(shapes, reuse_buffer)
     strides = np.array([sh[1] for sh in shapes], np.int64)
     rows = np.array([sh[0] for sh in shapes], np.int64)

@@ -6,7 +6,7 @@ import os
 
 import pytest
 
-from jpeg_tpu_torch.entropy import device_huffman, device_kernel
+from jpeg_tpu_torch.entropy import device_huffman, device_kernel, device_spec
 from jpeg_tpu_torch.ops import fused_plane, idct_only
 from jpeg_tpu_torch.utils import build
 
@@ -24,10 +24,11 @@ def test_digest_changes_when_a_header_changes(tmp_path):
 
 
 @pytest.mark.parametrize("module,name", [(device_huffman, "huffman_lanes"),
-                                         (device_kernel, "huffman_words")])
+                                         (device_kernel, "huffman_words"),
+                                         (device_spec, "huffman_spec")])
 def test_huffman_kernels_hash_their_shared_header(monkeypatch, tmp_path,
                                                   module, name):
-    """K3 and K4 include csrc/huffman_common.cuh: their loaders compile the
+    """K3, K4 and K7 include csrc/huffman_common.cuh: their loaders compile the
     .cu alone, with csrc on the include path, and name the library after a
     hash that covers the header."""
     _check_loader_hashes_header(monkeypatch, tmp_path, module, name,

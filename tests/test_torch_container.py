@@ -168,6 +168,7 @@ def test_import_never_loads_jax():
             "import jpeg_tpu_torch.entropy.device_huffman; "
             "import jpeg_tpu_torch.entropy.device_window; "
             "import jpeg_tpu_torch.entropy.device_kernel; "
+            "import jpeg_tpu_torch.entropy.device_spec; "
             "import jpeg_tpu_torch.ops.idct_only; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'jpeg_tpu' not in sys.modules, 'jpeg_tpu loaded'")

@@ -22,6 +22,7 @@ from jpeg_tpu_torch import (
 from jpeg_tpu_torch.entropy import device_decode as v1
 from jpeg_tpu_torch.entropy import device_huffman as k3
 from jpeg_tpu_torch.entropy import device_kernel as k4
+from jpeg_tpu_torch.entropy import device_spec as k7
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models import encoder
 from jpeg_tpu_torch.models.decoder import (
@@ -31,7 +32,10 @@ from jpeg_tpu_torch.models.decoder import (
 from jpeg_tpu_torch.ops import fused_encode as k2
 from jpeg_tpu_torch.ops import fused_plane as k1
 from jpeg_tpu_torch.ops import idct_only as k56
-from jpeg_tpu_torch.runtime import native_decode_planes
+from jpeg_tpu_torch.runtime import (
+    native_decode_coefficients,
+    native_decode_planes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -670,3 +674,45 @@ def test_k3_names_on_card(cuda):
         assert err.device.type == cuda.type
         assert torch.equal(err, werr[: err.numel()])
         assert all(torch.equal(c, w) for c, w in zip(coeffs, want))
+
+
+def _k7_against_plain(plan, lanes, overlap, dev):
+    """K7 and its plain twin on the same lanes: every element of the four
+    outputs equal, one launch counted."""
+    ls, ce, se, groups = k7._chunk_lanes(plan, lanes)
+    cap = k7.spec_cap(groups, overlap)
+    t = k7.spec_tensors(plan, ls, ce, se, dev)
+    before = k7.LAUNCHES.value
+    got = k7.spec_lanes(t, len(plan.scan_data), cap, overlap,
+                        len(plan.components))
+    assert k7.LAUNCHES.value == before + 1
+    want = k7.spec_lanes_plain(t, len(plan.scan_data), cap, overlap,
+                               len(plan.components))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,lanes,overlap", [
+    (SMALL[1], 64, 24), (SMALL[1], 64, 2), (SMALL[0], 64, 4),
+    (SMALL[2], 32, 3)])
+def test_k7_kernel_equals_plain_and_cpp(cuda, name, lanes, overlap):
+    """Phase A bit for bit with its twin; the whole speculative decode,
+    the coefficients on the card, bit for bit with the C++ decoder."""
+    plan = parse_jpeg(_read(name))
+    _k7_against_plain(plan, lanes, overlap, cuda)
+    coeffs, stats = k7.decode_coefficients_device_spec(plan, lanes, overlap,
+                                                       device=cuda)
+    assert stats["failed"] == 0 and coeffs.device.type == "cuda"
+    np.testing.assert_array_equal(coeffs.cpu().numpy(),
+                                  native_decode_coefficients(plan))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_k7_kernel_equals_plain_on_corrupt_streams(cuda, seed):
+    """Flipped bytes: lanes die at invalid prefixes, K7 as its twin does."""
+    plan = parse_jpeg(_read(SMALL[1]))
+    rng = np.random.default_rng(seed)
+    pos = rng.choice(len(plan.scan_data), size=3, replace=False)
+    plan.scan_data[pos] ^= rng.integers(1, 256, size=3).astype(np.uint8)
+    _k7_against_plain(plan, 48, 4, cuda)
+

@@ -141,3 +141,34 @@ def test_refusals():
         runtime.native_decode_lossless(parse_jpeg(bytes(bad)))
     with pytest.raises(ref_rt.NativeDecodeError):
         ref_rt.native_decode_lossless(ref_parse(bytes(bad)))
+
+
+@pytest.mark.parametrize("predictor", [1, 2, 5])
+def test_bare_call_takes_the_cpp_route(predictor, monkeypatch):
+    """A bare ``decode_lossless(plan)`` decodes as the JAX default
+    (``device=False``) does, through C++ ``jt_decode_lossless``: the Python
+    difference decoder and the cumsum route never run, and the samples
+    equal the JAX default's. ``decode_plan`` with a device still takes the
+    cumsum route where it applies, as the JAX ``decode_plan`` does."""
+    from jpeg_tpu_torch.models.decoder import decode_plan
+
+    img, data, _kw = _stream(predictor, (3, 8, 0, 0))
+    plan = parse_jpeg(data)
+    want = np.asarray(ref_ll.decode_lossless(ref_parse(data)))
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the Python difference decoder ran")
+
+    monkeypatch.setattr(lossless, "decode_diffs", refuse)
+    got = lossless.decode_lossless(plan)
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, img)
+    monkeypatch.undo()
+    routes = []
+    real = lossless.reconstruct_device
+    monkeypatch.setattr(lossless, "reconstruct_device",
+                        lambda *a: routes.append(1) or real(*a))
+    np.testing.assert_array_equal(decode_plan(plan, device="cpu"), img)
+    assert routes == ([1] if lossless.cumsum_takes(plan) else [])
+    assert lossless.cumsum_takes(plan) == (predictor in (1, 2))

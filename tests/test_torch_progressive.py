@@ -224,7 +224,8 @@ def test_ctypes_signatures_equal_jax():
     port, ref = Fake(), Fake()
     runtime._configure(port)
     ref_rt._configure(ref)
-    assert len(port.fns) == 13  # jt_decode_lossless joined in its item 7
+    # jt_decode_lossless joined in its item 7, jt_decode_gap with item 9.
+    assert len(port.fns) == 14
     for name, fn in port.fns.items():
         assert fn.restype == ref.fns[name].restype, name
         assert fn.argtypes == ref.fns[name].argtypes, name
