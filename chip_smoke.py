@@ -57,8 +57,9 @@ with an overlap of 2 MCUs (gap recovery), each bit for bit with the C++
 decoder, and on the restart-per-row 4K fixture (several segments merged);
 K7 equals its plain twin at 512x384 and at 4K; the phase times K7, the
 control arrays' copy, the merge, the relocate and the whole call beside the
-C++ speculative decode and K3 on the same frame, and K7's byte and serial
-bounds.
+C++ speculative decode and K3 on the same frame, K7's byte bound, and its
+longest lane's symbols (the serial depth) with an estimate, not a bound, of
+their time.
 
 Two phases cover the rest of the format matrix. ``entropy_names`` runs
 the main path's claim (eight 4K frames, 1,080 lanes) through K3 under every
@@ -95,9 +96,7 @@ A kernel's bound is the least time the card could take for its work: the
 larger of its bytes (inputs read once, outputs written once) over the
 H100 SXM's 3.35 TB/s and its operations at the rate of their type: fp32
 over 67 TFLOP/s, K1a's bf16 tensor-core products over 989 TFLOP/s (K3, K4
-and K7 do integer work, for which the data sheet gives no rate: bytes only;
-K7's record adds a serial bound, its longest lane's symbols at ~240 cycles
-each).
+and K7 do integer work, for which the data sheet gives no rate: bytes only).
 ``library_ms`` is one PyTorch route to the same function where there is
 one (K5 and K6: cuDNN convolution + pixel shuffle), timed and never used.
 
@@ -152,10 +151,11 @@ K3_INPUTS = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
              "skip", "pair", "skip_hv", "skip_canon", "skip_slots")
 K7_INPUTS = ("data", "bit_start", "chunk_end_bit", "seg_end_bit", "skip",
              "skip_hv", "skip_canon", "skip_slots")
-# K7's serial bound: a lane's symbols one after another, each step about
-# 240 cycles (K3's pass 1 on this card, PERF.md section 7), at the SM's
-# 1,980 MHz boost clock (H100 SXM data sheet).
-K7_CYCLES_PER_STEP = 240
+# An estimate, not a bound, of K7's serial time: its longest lane's symbols
+# one after another at ~240 cycles a step (K3's pass 1 as measured on the
+# H100, PERF.md section 7; not a floor of the card), at the SM's 1,980 MHz
+# boost clock (H100 SXM data sheet).
+K3_CYCLES_PER_STEP_EST = 240
 SM_CLOCK_HZ = 1.98e9
 # K1 buckets beyond the main path's: luma (h, v) over 1x1 chroma, and gray.
 K1_SAMPLINGS = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2),
@@ -1471,8 +1471,9 @@ def speculative(dev, card: str) -> dict:
     device-to-host copy, the host merge, the relocate and the whole call
     (host clock; the overlap-2 call's merge and whole call timed once after
     a warm-up), beside ``native_decode_planes(speculative=True)`` and K3
-    (one lane: the scan is one segment) on the same frame, and K7's byte
-    and serial bounds. Returns K7's record for the kernels line."""
+    (one lane: the scan is one segment) on the same frame, K7's byte bound
+    and its longest lane's symbols with their estimated serial time.
+    Returns K7's record for the kernels line."""
     import torch
 
     from jpeg_tpu_torch import encode_rgb, runtime
@@ -1513,7 +1514,8 @@ def speculative(dev, card: str) -> dict:
             plan, lanes, overlap, device=dev), reps)
         ls, ce, se, groups = k7._chunk_lanes(plan, lanes)
         cap = k7.spec_cap(groups, overlap)
-        t = k7.spec_tensors(plan, ls, ce, se, dev)
+        # Both table sets: the 2,048-lane tensors also feed the twin below.
+        t = k7.spec_tensors(plan, ls, ce, se, dev, tables="both")
         ms = cuda_ms(lambda: k7.spec_lanes(t, n_bytes, cap, overlap, n_comp),
                      5, 1, queued=True)
         out, *ctrl = k7.spec_lanes(t, n_bytes, cap, overlap, n_comp)
@@ -1529,18 +1531,20 @@ def speculative(dev, card: str) -> dict:
         symbols = k7_lane_symbols(out, ctrl[2], bpm)
         n_bytes_moved = nbytes(*(t[k] for k in K7_INPUTS), out, *ctrl)
         bnd = bound(n_bytes_moved)
-        serial = float(symbols.max()) * K7_CYCLES_PER_STEP / SM_CLOCK_HZ * 1e3
+        serial = (float(symbols.max()) * K3_CYCLES_PER_STEP_EST / SM_CLOCK_HZ
+                  * 1e3)
         runs[label] = dict(cap=cap, stats=stats, launches=launches, ms=ms,
-                           bnd=bnd, serial=serial, t=t)
+                           bnd=bnd, t=t)
         print(f"speculative, {label} ({card}): lanes {stats['lanes']}, cap "
               f"{cap}, gap_mcus {stats['gap_mcus']}, merged {stats['merged']}; "
               f"median ms: K7 {ms:.4f} (its outputs' zeroing alone {zero:.4f}; "
               f"CUDA events, queued), control-array D2H {d2h:.3f}, host merge "
               f"{merge:.3f}, relocate {reloc:.3f}, whole call {whole:.3f} (host "
               f"clock); K7 {share(ms, bnd)} ({n_bytes_moved / 1e6:.1f} MB); "
-              f"serial bound {serial:.4f} ms (longest lane "
-              f"{int(symbols.max())} symbols, mean {float(symbols.float().mean()):.0f}, "
-              f"x {K7_CYCLES_PER_STEP} cycles at {SM_CLOCK_HZ / 1e9:.2f} GHz)",
+              f"longest lane {int(symbols.max())} symbols (mean "
+              f"{float(symbols.float().mean()):.0f}), serial estimate, not a "
+              f"bound, {serial:.4f} ms at K3's measured ~"
+              f"{K3_CYCLES_PER_STEP_EST} cycles a step, {SM_CLOCK_HZ / 1e9:.2f} GHz",
               flush=True)
         del out, ctrl, coeffs
     # The restart-per-row fixture: chunk lanes inside each of its segments.
@@ -1559,7 +1563,7 @@ def speculative(dev, card: str) -> dict:
     for overlap in (24, 2):
         ls, ce, se, groups = k7._chunk_lanes(small, 64)
         cap = k7.spec_cap(groups, overlap)
-        t = k7.spec_tensors(small, ls, ce, se, dev)
+        t = k7.spec_tensors(small, ls, ce, se, dev, tables="both")
         args = (t, len(small.scan_data), cap, overlap, len(small.components))
         got, want_p = k7.spec_lanes(*args), k7.spec_lanes_plain(*args)
         check(all(torch.equal(g, w) for g, w in zip(got, want_p)),
@@ -1595,7 +1599,7 @@ def speculative(dev, card: str) -> dict:
             "replaces": "jpeg_tpu/entropy/device_spec.py:83",
             "launches": main["launches"], "max_abs_err": max(errs),
             "ms": main["ms"], "plain_ms": plain_ms, **main["bnd"],
-            "bound_serial_ms": main["serial"], "library_ms": None,
+            "library_ms": None,
             "lanes": main["stats"]["lanes"], "cap": main["cap"],
             "launches_by_call": {k: r["launches"] for k, r in runs.items()},
             "ms_by_call": {k: r["ms"] for k, r in runs.items()},
@@ -1779,7 +1783,8 @@ def formats(dev, card: str) -> dict:
 
     # Lossless: reconstruct_device at 4K on seeded differences (predictors
     # 1 and 2), then 512x384 streams end to end.
-    routes = {"cumsum on the card": 0, "C++ jt_decode_lossless": 0}
+    routes = {"C++ differences, cumsum on the card": 0,
+              "C++ jt_decode_lossless": 0}
     src = synthetic_image(*FORMATS_4K, seed=26)
     for predictor in (1, 2):
         meta = dataclasses.replace(
@@ -1803,26 +1808,38 @@ def formats(dev, card: str) -> dict:
         data = lossless.encode_lossless(small, predictor=predictor,
                                         restart_interval=ri)
         plan = parse_jpeg(data)
-        route = ("cumsum on the card" if lossless.cumsum_takes(plan)
-                 else "C++ jt_decode_lossless")
+        route = ("C++ differences, cumsum on the card"
+                 if lossless.cumsum_takes(plan) else "C++ jt_decode_lossless")
         routes[route] += 1
         t0 = time.perf_counter()
         got = decode_bytes(data, device=dev)
         times[f"lossless 512x384 RGB predictor {predictor}, restart "
               f"interval {ri}: decode_bytes end to end ({route})"] = (
                   time.perf_counter() - t0) * 1e3
+        label = (f"lossless 512x384 RGB predictor {predictor}, restart "
+                 f"interval {ri}")
+        times[f"{label}: decode_lossless(plan), the default device "
+              f"({route})"] = host_ms(lambda: lossless.decode_lossless(plan))
+        times[f"{label}: decode_lossless(plan, device=None), the JAX "
+              "default's host route (C++ jt_decode_lossless)"] = host_ms(
+                  lambda: lossless.decode_lossless(plan, device=None))
+        times[f"{label}: native_decode_lossless_diffs (C++)"] = host_ms(
+            lambda: runtime.native_decode_lossless_diffs(plan))
         t0 = time.perf_counter()
         diffs = lossless.decode_diffs(plan)
-        times[f"lossless 512x384 RGB predictor {predictor}, restart "
-              f"interval {ri}: decode_diffs (pure Python, one call)"] = (
-                  time.perf_counter() - t0) * 1e3
+        times[f"{label}: decode_diffs (pure Python, one call)"] = (
+            time.perf_counter() - t0) * 1e3
         oracle = lossless.reconstruct(plan, diffs)
         check(np.array_equal(got, decode_bytes(data, device="cpu"))
+              and np.array_equal(got, lossless.decode_lossless(plan))
               and np.array_equal(got, runtime.native_decode_lossless(plan))
+              and np.array_equal(runtime.native_decode_lossless_diffs(plan),
+                                 diffs & 0xFFFF)
               and np.array_equal(got, oracle) and np.array_equal(got, small),
               f"lossless predictor {predictor}, restart interval {ri} "
               f"({route}): decode_bytes on the card == device='cpu' == "
-              "native_decode_lossless == reconstruct == the source")
+              "decode_lossless(plan) == native_decode_lossless == "
+              "reconstruct == the source; C++ differences == decode_diffs")
     auto = lossless.encode_lossless(small, predictor="auto")
     check(np.array_equal(decode_bytes(auto, device=dev), small),
           f"encode_lossless(predictor='auto') (predictor "

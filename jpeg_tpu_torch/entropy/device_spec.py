@@ -95,25 +95,34 @@ def spec_cap(groups, overlap_mcus: int) -> int:
 
 
 def spec_tensors(plan: DecodePlan, lane_start, lane_chunk_end, lane_seg_end,
-                 device) -> dict:
+                 device, tables: str | None = None) -> dict:
     """Phase A's inputs on ``device``: the scan bytes (``PAD`` bytes of
-    padding after them), the lanes' int32 bit positions, K3's kernel
-    tables (``skip``, ``skip_hv``, ``skip_canon``, ``skip_slots``) and the
-    plain version's (``lut11``, ``huffval``, ``canon``, ``slots``)."""
+    padding after them), the lanes' int32 bit positions, and the tables of
+    the side that will read them: ``tables="kernel"`` K7's (``skip``,
+    ``skip_hv``, ``skip_canon``, ``skip_slots``, as K3's), ``"plain"`` the
+    plain version's (``lut11``, ``huffval``, ``canon``, ``slots``),
+    ``"both"`` for a comparison of the two; by default the kernel's on a
+    CUDA device, else the plain version's."""
     scan = np.asarray(plan.scan_data, np.uint8)
     if len(scan) >= (1 << 28):
         raise ValueError(f"scan of {len(scan)} bytes: K7's bit positions are "
                          "int32 (< 2^28 bytes)")
+    if tables is None:
+        tables = "kernel" if torch.device(device).type == "cuda" else "plain"
+    if tables not in ("kernel", "plain", "both"):
+        raise ValueError(f"unknown tables {tables!r}")
     slots = device_huffman.slot_rows(plan)
     lut, hv, canon = device_huffman.lane_tables(plan)
-    skip, _pair, skip_hv, skip_canon, skip_slots = device_huffman.kernel_tables(
-        lut, hv, canon, slots)
-    arrays = dict(
-        data=np.concatenate([scan, np.zeros(PAD, np.uint8)]),
-        bit_start=lane_start, chunk_end_bit=lane_chunk_end,
-        seg_end_bit=lane_seg_end, skip=skip, skip_hv=skip_hv,
-        skip_canon=skip_canon, skip_slots=skip_slots, lut11=lut, huffval=hv,
-        canon=canon, slots=slots)
+    arrays = dict(data=np.concatenate([scan, np.zeros(PAD, np.uint8)]),
+                  bit_start=lane_start, chunk_end_bit=lane_chunk_end,
+                  seg_end_bit=lane_seg_end)
+    if tables != "plain":
+        skip, _pair, skip_hv, skip_canon, skip_slots = (
+            device_huffman.kernel_tables(lut, hv, canon, slots))
+        arrays.update(skip=skip, skip_hv=skip_hv, skip_canon=skip_canon,
+                      skip_slots=skip_slots)
+    if tables != "kernel":
+        arrays.update(lut11=lut, huffval=hv, canon=canon, slots=slots)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}
 

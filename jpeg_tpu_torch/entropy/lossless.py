@@ -5,7 +5,8 @@ Counterpart of ``jpeg_tpu/entropy/lossless.py``: the difference decoder
 reconstruction (:func:`reconstruct`), the prefix-sum reconstruction of
 predictors 1 and 2 on a torch device (:func:`reconstruct_device`, two
 ``torch.cumsum`` a component), :func:`decode_lossless` with the C++ runtime
-(``jt_decode_lossless``) or this module as its engine, and
+(``jt_decode_lossless``, or ``jt_decode_lossless_diffs`` before the
+reconstruction on the device) or this module as its engine, and
 :func:`encode_lossless`, copied with its ``predictor="auto"`` selection.
 The port's tests hold each to the JAX function bit for bit.
 
@@ -37,7 +38,8 @@ import torch
 
 from jpeg_tpu_torch.entropy.oracle import BitReader, decode_symbol
 from jpeg_tpu_torch.io.container import DecodePlan, JPEGError
-from jpeg_tpu_torch.runtime import native_decode_lossless
+from jpeg_tpu_torch.runtime import (native_decode_lossless,
+                                    native_decode_lossless_diffs)
 
 M16 = 0xFFFF
 
@@ -158,27 +160,28 @@ def reconstruct_device(plan: DecodePlan, diffs: np.ndarray, device="cuda"):
     return (((rec & M16) << pt) & M16).to(torch.uint16)
 
 
-def decode_lossless(plan: DecodePlan, device=None,
+def decode_lossless(plan: DecodePlan, device="cuda",
                     engine: str = "auto") -> np.ndarray:
     """SOF3 scan -> ``[H, W, ncomp]`` uint16 samples (numpy).
 
-    ``device=None`` (the default, the JAX package's ``device=False``):
-    ``engine`` alone. This is the one entry point of the port whose device
-    defaults to none: the JAX ``device`` is a route switch, and its default
-    is the host route. A ``device`` (``"cuda"``, ``"cpu"``): decode the
-    differences with :func:`decode_diffs` and reconstruct predictor-1/2
-    restart-free scans with :func:`reconstruct_device` there (the JAX
-    package's ``device=True``, which ``decode_plan`` passes); other scans
-    take ``engine``. ``engine``:
-    ``"auto"`` or ``"native"`` (C++ ``jt_decode_lossless``: differences
-    parallel over restart segments, prediction in order; a failed build
-    raises) or ``"oracle"`` (:func:`reconstruct`)."""
+    ``device`` (default ``"cuda"``, the JAX package's ``device=True``):
+    reconstruct predictor-1/2 restart-free scans with
+    :func:`reconstruct_device` there, from differences decoded by
+    ``engine``; other scans take ``engine`` alone. ``device=None`` is the
+    JAX package's ``device=False``: ``engine`` alone. ``engine``:
+    ``"auto"`` or ``"native"`` (C++: ``jt_decode_lossless_diffs`` for the
+    device route, ``jt_decode_lossless`` otherwise; differences parallel
+    over restart segments, prediction in order; a failed build raises) or
+    ``"oracle"`` (:func:`decode_diffs`, then :func:`reconstruct` off the
+    device route)."""
     if not plan.lossless:
         raise JPEGError("decode_lossless requires an SOF3 plan")
     if engine not in ("auto", "native", "oracle"):
         raise ValueError(f"unknown engine {engine!r}")
     if device is not None and cumsum_takes(plan):
-        return reconstruct_device(plan, decode_diffs(plan), device).cpu().numpy()
+        diffs = (decode_diffs(plan) if engine == "oracle"
+                 else native_decode_lossless_diffs(plan))
+        return reconstruct_device(plan, diffs, device).cpu().numpy()
     if engine != "oracle":
         return native_decode_lossless(plan)
     return reconstruct(plan, decode_diffs(plan))

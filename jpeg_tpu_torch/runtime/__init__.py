@@ -2,15 +2,16 @@
 
 Binds entry points of the port's copy of the JAX package's C++ decode
 library (``jpeg_tpu_torch/runtime/native/jpegtpu.cpp``, a verbatim copy of
-``jpeg_tpu/runtime/native/jpegtpu.cpp``) without importing ``jpeg_tpu``:
+``jpeg_tpu/runtime/native/jpegtpu.cpp``, built through ``jpegtpu_port.cpp``,
+which includes it and adds the port's own entry points) without importing
+``jpeg_tpu``:
 
 - ``jt_decode_scan``: restart-segment-parallel Huffman decode into
   ``[total_blocks, 64]`` int32 zigzag blocks (the compat decode's input);
 - ``jt_decode_scan_planes``: restart-segment-parallel Huffman decode into
   per-component natural-order int16 planes (the layout K1 reads);
 - ``jt_decode_scan_planes_spec``: the speculative self-synchronising decode
-  of a single-segment scan, used for multi-threaded single-image decode,
-  its chunk count tuned by measurement (``_spec_chunks``);
+  of a single-segment scan, used for multi-threaded single-image decode;
 - ``jt_decode_gap``: sequential MCU decode from any bit position up to a
   recorded stop, the gap recovery of ``entropy/device_spec.py``;
 - ``jt_unstuff_scan``: byte unstuffing and restart split for large scans;
@@ -20,7 +21,9 @@ library (``jpeg_tpu_torch/runtime/native/jpegtpu.cpp``, a verbatim copy of
   into K1's planes (``jt_prog_assemble_planes``);
 - sequential arithmetic (SOF9) scans into blocks (``jt_decode_arith_scan``)
   or planes (``jt_decode_arith_scan_planes``);
-- lossless (SOF3) scans into samples (``jt_decode_lossless``);
+- lossless (SOF3) scans into samples (``jt_decode_lossless``), or into
+  their prediction differences only (``jt_decode_lossless_diffs``, the
+  port's own, for the reconstruction on the card);
 
 and of its C++ entropy encoder (``jpeg_tpu_torch/runtime/native/
 jpegtpu_enc.cpp``, a copy of the JAX package's): restart-segment-parallel
@@ -36,18 +39,17 @@ compiler or a failed build raises; there is no numpy fallback on this path.
 from __future__ import annotations
 
 import ctypes
-import json
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from jpeg_tpu_torch.utils.build import BUILD_DIR, GXX_FLAGS, BuildError, load_library
+from jpeg_tpu_torch.utils.build import GXX_FLAGS, BuildError, load_library
 
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 SOURCE = os.path.join(NATIVE_DIR, "jpegtpu.cpp")
+PORT_SOURCE = os.path.join(NATIVE_DIR, "jpegtpu_port.cpp")  # includes SOURCE
 ENC_SOURCE = os.path.join(NATIVE_DIR, "jpegtpu_enc.cpp")
 
 # Output buffers reused per thread (see native_decode_planes,
@@ -78,6 +80,12 @@ def _configure(lib: ctypes.CDLL) -> None:
         ctypes.c_int32, u16p, ctypes.POINTER(ctypes.c_int32),  # ncomp, luts, dc ids
         ctypes.c_int64, ctypes.c_int64,  # width, height
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # pred, pt, prec
+        u16p, ctypes.c_int32,  # out, n_threads
+    ]
+    lib.jt_decode_lossless_diffs.restype = ctypes.c_int64
+    lib.jt_decode_lossless_diffs.argtypes = [
+        u8p, i64p, i64p, i64p, i64p, ctypes.c_int64,  # data, segs
+        ctypes.c_int32, u16p, ctypes.POINTER(ctypes.c_int32),  # ncomp, luts, dc ids
         u16p, ctypes.c_int32,  # out, n_threads
     ]
     lib.jt_decode_scan.restype = ctypes.c_int64
@@ -207,7 +215,8 @@ def _configure(lib: ctypes.CDLL) -> None:
 
 def load() -> ctypes.CDLL:
     """Build (at first use) and load the C++ runtime."""
-    return load_library("jpegtpu", ["g++", *GXX_FLAGS], [SOURCE], _configure)
+    return load_library("jpegtpu", ["g++", *GXX_FLAGS], [PORT_SOURCE],
+                        _configure, headers=(SOURCE,))
 
 
 def native_available() -> bool:
@@ -263,110 +272,6 @@ def _plane_args(plan):
     return cached
 
 
-_spec_tuner: dict = {}
-_spec_tuner_lock = threading.Lock()
-_SPEC_TUNER_PATH = os.path.join(BUILD_DIR, "spec_tuner.json")
-
-
-def _spec_key(plan):
-    return (plan.width, plan.height, len(plan.components),
-            int(len(plan.scan_data)) >> 18)
-
-
-def _spec_persist_key(key) -> str:
-    # Keyed on the library's path as well, whose name carries a hash of the
-    # C++ source and the compiler command (a rebuild invalidates old
-    # choices), and on the core count.
-    return (f"{key}|cores={os.cpu_count()}|"
-            f"so={os.path.basename(load()._name)}")
-
-
-def _spec_persist_load(key):
-    try:
-        with open(_SPEC_TUNER_PATH) as f:
-            return json.load(f).get(_spec_persist_key(key))
-    except (OSError, ValueError):
-        return None
-
-
-def _spec_persist_store(key, chosen: int) -> None:
-    try:
-        try:
-            with open(_SPEC_TUNER_PATH) as f:
-                d = json.load(f)
-        except (OSError, ValueError):
-            d = {}
-        d[_spec_persist_key(key)] = chosen
-        os.makedirs(os.path.dirname(_SPEC_TUNER_PATH), exist_ok=True)
-        tmp = _SPEC_TUNER_PATH + f".tmp{os.getpid()}"
-        with open(tmp, "w") as f:
-            json.dump(d, f)
-        os.replace(tmp, _SPEC_TUNER_PATH)
-    except OSError:
-        pass  # persistence is best-effort
-
-
-def _spec_chunks(plan, n_threads: int) -> int:
-    """Chunk count of the speculative decode of a single-segment scan,
-    tuned by measurement (``jpeg_tpu.runtime._spec_chunks``): per
-    (geometry, scan size) class the first calls trial the candidates
-    4, 6 and 8 x ``n_threads`` in turn, two timed calls each (the caller
-    reports wall time through :func:`_spec_feedback`), then the fastest is
-    kept. The choice persists to ``build/spec_tuner.json`` keyed on the
-    geometry, the core count and the library; a process that loads one
-    still runs one confirmation trial per candidate, so that its snapshot
-    carries times measured under its own conditions."""
-    with _spec_tuner_lock:
-        key = _spec_key(plan)
-        st = _spec_tuner.get(key)
-        if st is None:
-            cands = sorted({4 * n_threads, 6 * n_threads, 8 * n_threads})
-            persisted = _spec_persist_load(key)
-            st = {"cands": cands, "times": {k: [] for k in cands},
-                  "chosen": persisted, "i": 0,
-                  "confirm": len(cands) if persisted is not None else 0}
-            _spec_tuner[key] = st
-        if st["chosen"] is not None:
-            if st["confirm"] > 0:
-                st["confirm"] -= 1
-                return st["cands"][st["confirm"] % len(st["cands"])]
-            return st["chosen"]
-        cands = st["cands"]
-        if all(len(st["times"][k]) >= 2 for k in cands):
-            st["chosen"] = min(
-                cands, key=lambda k: sorted(st["times"][k])[0])
-            _spec_persist_store(key, st["chosen"])
-            return st["chosen"]
-        k = cands[st["i"] % len(cands)]
-        st["i"] += 1
-        return k
-
-
-def _spec_feedback(plan, k: int, dt: float) -> None:
-    """Record one speculative decode's wall time ``dt`` (s) at ``k`` chunks,
-    while trialling and during the confirmation pass."""
-    with _spec_tuner_lock:
-        st = _spec_tuner.get(_spec_key(plan))
-        if st is not None and k in st["times"]:
-            st["times"][k].append(dt)
-
-
-def spec_tuner_snapshot() -> dict:
-    """The tuner's state for benchmark records: per geometry key, the
-    chosen chunk count and each candidate's best trial time (ms)."""
-    with _spec_tuner_lock:
-        return {
-            str(key): {
-                "chosen": st["chosen"],
-                "best_ms": {
-                    str(k): (round(min(v) * 1e3, 3) if v else None)
-                    for k, v in st["times"].items()
-                },
-            }
-            for key, st in _spec_tuner.items()
-        }
-
-
 def native_decode_planes(plan, n_threads: int | None = None,
                          reuse_buffer: bool = True,
                          speculative: bool | None = None,
@@ -378,8 +283,10 @@ def native_decode_planes(plan, n_threads: int | None = None,
     decodes speculatively (bit-identical: a broken sync link falls back to
     sequential decode inside the library) when ``speculative`` is true, or,
     with ``speculative=None``, when the scan holds at least 64 KB and
-    ``n_threads > 1``; in ``n_chunks`` chunks, or as many as
-    :func:`_spec_chunks` measures best.
+    ``n_threads > 1``; in ``4 * n_threads`` chunks unless ``n_chunks`` says
+    otherwise (the JAX signature's knob; only tests set it). The JAX
+    package's measured chunk tuner is left out until a measurement on the
+    card's host shows another count winning (ROADMAP).
 
     With ``reuse_buffer`` (default) the planes are this thread's scratch
     buffers, overwritten by its next same-geometry call: consume or copy
@@ -408,13 +315,9 @@ def native_decode_planes(plan, n_threads: int | None = None,
         speculative = (len(plan.segments) == 1 and data.size >= 65536
                        and n_threads > 1)
     if speculative and len(plan.segments) == 1:
-        k = n_chunks if n_chunks else _spec_chunks(plan, n_threads)
-        t0 = time.perf_counter()
         err = lib.jt_decode_scan_planes_spec(
             _p(data, ctypes.c_uint8), data.size, plan.n_mcus, *common,
-            k, n_threads)
-        if n_chunks is None:
-            _spec_feedback(plan, k, time.perf_counter() - t0)
+            n_chunks or 4 * n_threads, n_threads)
     else:
         err = lib.jt_decode_scan_planes(
             _p(data, ctypes.c_uint8), data.size,
@@ -501,28 +404,48 @@ def native_decode_gap(plan, start_bit: int, end_byte: int,
     return out[: n * bpm].reshape(n, bpm, 64), pos[:n]
 
 
+def _lossless_args(plan, n_threads):
+    data = np.ascontiguousarray(plan.scan_data, dtype=np.uint8)
+    segs = [np.array([getattr(s, f) for s in plan.segments], np.int64)
+            for f in ("byte_start", "byte_end", "mcu_start", "mcu_count")]
+    comp_dc = np.array([c.dc_id for c in plan.components], np.int32)
+    dc_luts = _packed_luts(plan.dc_tables)
+    keep = (data, segs, comp_dc, dc_luts)  # alive until the call returns
+    args = (_p(data, ctypes.c_uint8), *(_p(a, ctypes.c_int64) for a in segs),
+            len(plan.segments), len(plan.components),
+            _p(dc_luts, ctypes.c_uint16), _p(comp_dc, ctypes.c_int32))
+    if n_threads is None:
+        n_threads = os.cpu_count() or 1
+    return keep, args, n_threads
+
+
 def native_decode_lossless(plan, n_threads: int | None = None) -> np.ndarray:
     """Lossless (SOF3) decode -> ``[H, W, ncomp]`` uint16 samples, the
     contract of :func:`jpeg_tpu_torch.entropy.lossless.decode_lossless`:
     differences decode in parallel over restart segments, the prediction
     pass runs in order. Raises :class:`NativeDecodeError` on an invalid
     prefix."""
-    lib = load()
-    if n_threads is None:
-        n_threads = os.cpu_count() or 1
-    data = np.ascontiguousarray(plan.scan_data, dtype=np.uint8)
-    segs = [np.array([getattr(s, f) for s in plan.segments], np.int64)
-            for f in ("byte_start", "byte_end", "mcu_start", "mcu_count")]
-    comp_dc = np.array([c.dc_id for c in plan.components], np.int32)
-    dc_luts = _packed_luts(plan.dc_tables)
+    _keep, args, n_threads = _lossless_args(plan, n_threads)
     out = np.zeros((plan.height, plan.width, len(plan.components)), np.uint16)
-    err = lib.jt_decode_lossless(
-        _p(data, ctypes.c_uint8), *(_p(a, ctypes.c_int64) for a in segs),
-        len(plan.segments), len(plan.components),
-        _p(dc_luts, ctypes.c_uint16), _p(comp_dc, ctypes.c_int32),
-        plan.width, plan.height,
+    err = load().jt_decode_lossless(
+        *args, plan.width, plan.height,
         plan.predictor, plan.point_transform, plan.precision,
         _p(out, ctypes.c_uint16), n_threads)
+    if err >= 0:
+        raise NativeDecodeError(int(err))
+    return out
+
+
+def native_decode_lossless_diffs(plan,
+                                 n_threads: int | None = None) -> np.ndarray:
+    """Lossless (SOF3) prediction differences -> ``[H, W, ncomp]`` uint16,
+    :func:`jpeg_tpu_torch.entropy.lossless.decode_diffs` mod 2^16 (the
+    first phase of ``jt_decode_lossless``, parallel over restart segments).
+    Raises :class:`NativeDecodeError` on an invalid prefix."""
+    _keep, args, n_threads = _lossless_args(plan, n_threads)
+    out = np.zeros((plan.height, plan.width, len(plan.components)), np.uint16)
+    err = load().jt_decode_lossless_diffs(*args, _p(out, ctypes.c_uint16),
+                                          n_threads)
     if err >= 0:
         raise NativeDecodeError(int(err))
     return out

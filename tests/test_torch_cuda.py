@@ -640,6 +640,25 @@ def test_reconstruct_device_on_card(cuda, predictor):
                                   (img >> 3) << 3)
 
 
+@pytest.mark.parametrize("predictor", [1, 5])
+def test_decode_lossless_bare_call_on_card(cuda, predictor, monkeypatch):
+    """A bare ``decode_lossless(plan)`` runs on the card: the C++
+    differences and the cumsum there for predictor 1, ``jt_decode_lossless``
+    for predictor 5; never the pure-Python difference decoder."""
+    from jpeg_tpu_torch.entropy import lossless
+
+    img = np.random.default_rng(predictor).integers(
+        0, 256, (48, 64, 3)).astype(np.uint8)
+    plan = parse_jpeg(lossless.encode_lossless(img, predictor=predictor))
+    devices = []
+    real = lossless.reconstruct_device
+    monkeypatch.setattr(lossless, "decode_diffs", None)
+    monkeypatch.setattr(lossless, "reconstruct_device",
+                        lambda p, d, dev: devices.append(dev) or real(p, d, dev))
+    np.testing.assert_array_equal(lossless.decode_lossless(plan), img)
+    assert devices == (["cuda"] if predictor == 1 else [])
+
+
 def test_k3_names_on_card(cuda):
     """Every device-entropy tier name launches K3 once and equals the v5
     name on the card and the CPU run, bit for bit."""
@@ -681,7 +700,7 @@ def _k7_against_plain(plan, lanes, overlap, dev):
     outputs equal, one launch counted."""
     ls, ce, se, groups = k7._chunk_lanes(plan, lanes)
     cap = k7.spec_cap(groups, overlap)
-    t = k7.spec_tensors(plan, ls, ce, se, dev)
+    t = k7.spec_tensors(plan, ls, ce, se, dev, tables="both")
     before = k7.LAUNCHES.value
     got = k7.spec_lanes(t, len(plan.scan_data), cap, overlap,
                         len(plan.components))

@@ -249,6 +249,39 @@ def test_device_other_than_cpu_or_cuda_raises():
         spec.spec_lanes(t, len(p.scan_data), spec.spec_cap(groups, 4), 4, 3)
 
 
+KERNEL_TABLES = {"skip", "skip_hv", "skip_canon", "skip_slots"}
+PLAIN_TABLES = {"lut11", "huffval", "canon", "slots"}
+
+
+@pytest.mark.parametrize("device,tables,want", [
+    ("cpu", None, PLAIN_TABLES), ("cpu", "plain", PLAIN_TABLES),
+    ("cpu", "kernel", KERNEL_TABLES), ("cpu", "both", KERNEL_TABLES | PLAIN_TABLES),
+    ("meta", None, PLAIN_TABLES)])
+def test_spec_tensors_carry_the_tables_of_the_side_that_reads_them(
+        device, tables, want):
+    """Only the tables its reader needs go to the device: K7's by default
+    on CUDA (not testable here), the plain version's elsewhere, both for a
+    comparison; the kernel's equal K3's ``kernel_tables``."""
+    from jpeg_tpu_torch.entropy import device_huffman
+
+    p = parse_jpeg(encode_rgb(_noise((32, 48, 3), 7), quality=80))
+    ls, ce, se, _groups = spec._chunk_lanes(p, 4)
+    t = spec.spec_tensors(p, ls, ce, se, device, tables=tables)
+    lanes = {"data", "bit_start", "chunk_end_bit", "seg_end_bit"}
+    assert set(t) == lanes | want
+    assert all(x.device.type == device for x in t.values())
+    if device == "cpu" and "skip" in t:
+        lut, hv, canon = device_huffman.lane_tables(p)
+        skip, _pair, skip_hv, skip_canon, skip_slots = (
+            device_huffman.kernel_tables(lut, hv, canon,
+                                         device_huffman.slot_rows(p)))
+        for k, v in (("skip", skip), ("skip_hv", skip_hv),
+                     ("skip_canon", skip_canon), ("skip_slots", skip_slots)):
+            np.testing.assert_array_equal(t[k].numpy(), v)
+    with pytest.raises(ValueError, match="tables"):
+        spec.spec_tensors(p, ls, ce, se, device, tables="twin")
+
+
 def test_sync_is_looked_for_only_up_to_the_segment_end():
     """A valid restart stream on which the JAX merge fails a segment: past
     the segment's last MCU, two lanes that decode the padding and the next

@@ -145,13 +145,20 @@ def test_refusals():
 
 @pytest.mark.parametrize("predictor", [1, 2, 5])
 def test_bare_call_takes_the_cpp_route(predictor, monkeypatch):
-    """A bare ``decode_lossless(plan)`` decodes as the JAX default
-    (``device=False``) does, through C++ ``jt_decode_lossless``: the Python
-    difference decoder and the cumsum route never run, and the samples
-    equal the JAX default's. ``decode_plan`` with a device still takes the
-    cumsum route where it applies, as the JAX ``decode_plan`` does."""
+    """``decode_lossless(plan)`` defaults to the card (``device="cuda"``,
+    the JAX package's ``device=True``) and decodes the differences there in
+    C++ (``jt_decode_lossless_diffs``), never with the pure-Python
+    :func:`decode_diffs`; scans the cumsum does not take go to
+    ``jt_decode_lossless``. The same call with a CPU device (a bare call's
+    route, without the card) equals the JAX default's samples, and
+    ``decode_plan`` with a device takes the cumsum route where it applies,
+    as the JAX ``decode_plan`` does."""
+    import inspect
+
     from jpeg_tpu_torch.models.decoder import decode_plan
 
+    sig = inspect.signature(lossless.decode_lossless).parameters
+    assert sig["device"].default == "cuda" and sig["engine"].default == "auto"
     img, data, _kw = _stream(predictor, (3, 8, 0, 0))
     plan = parse_jpeg(data)
     want = np.asarray(ref_ll.decode_lossless(ref_parse(data)))
@@ -159,16 +166,45 @@ def test_bare_call_takes_the_cpp_route(predictor, monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("the Python difference decoder ran")
 
+    routes = []
+    real = lossless.reconstruct_device
     monkeypatch.setattr(lossless, "decode_diffs", refuse)
-    got = lossless.decode_lossless(plan)
+    monkeypatch.setattr(lossless, "reconstruct_device",
+                        lambda *a: routes.append(1) or real(*a))
+    got = lossless.decode_lossless(plan, device="cpu")
     assert got.dtype == np.uint16
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, img)
-    monkeypatch.undo()
-    routes = []
-    real = lossless.reconstruct_device
-    monkeypatch.setattr(lossless, "reconstruct_device",
-                        lambda *a: routes.append(1) or real(*a))
     np.testing.assert_array_equal(decode_plan(plan, device="cpu"), img)
-    assert routes == ([1] if lossless.cumsum_takes(plan) else [])
     assert lossless.cumsum_takes(plan) == (predictor in (1, 2))
+    assert routes == ([1, 1] if lossless.cumsum_takes(plan) else [])
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_native_differences_match_decode_diffs(config):
+    """``native_decode_lossless_diffs`` (C++ phase 1) equals the JAX
+    ``decode_diffs`` mod 2^16 for every predictor, with and without restart
+    intervals, and feeds ``reconstruct_device`` to the same samples as the
+    Python differences."""
+    for predictor in range(1, 8):
+        _img, data, _kw = _stream(predictor, config)
+        plan, ref = parse_jpeg(data), ref_parse(data)
+        got = runtime.native_decode_lossless_diffs(plan)
+        want = np.asarray(ref_ll.decode_diffs(ref))
+        assert got.dtype == np.uint16 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want & 0xFFFF)
+        np.testing.assert_array_equal(
+            runtime.native_decode_lossless_diffs(plan, n_threads=1), got)
+        if lossless.cumsum_takes(plan):
+            np.testing.assert_array_equal(
+                lossless.reconstruct_device(plan, got, "cpu").numpy(),
+                lossless.reconstruct_device(plan, want, "cpu").numpy())
+
+
+def test_native_differences_refuse_an_invalid_prefix():
+    """An invalid prefix raises, as in ``jt_decode_lossless``."""
+    bad = bytearray(ref_ll.encode_lossless(_samples(1, 1, 8),
+                                           restart_interval=40))
+    bad[-60:-20] = b"\xff\x00" * 20  # runs of ones: invalid prefixes
+    with pytest.raises(runtime.NativeDecodeError):
+        runtime.native_decode_lossless_diffs(parse_jpeg(bytes(bad)))

@@ -2,7 +2,7 @@
 ``native_decode_planes(speculative=, n_chunks=)`` on streams without
 restart markers (the cases of ``tests/test_speculative.py`` that need no
 reference corpus, their streams from the port's encoder instead of PIL),
-the measured chunk tuner and its persistence, and ``native_decode_gap``,
+its fixed chunk count, and ``native_decode_gap``,
 the gap recovery of ``entropy/device_spec.py``, against the JAX binding
 and against the port's NumPy oracle loop."""
 
@@ -55,12 +55,42 @@ def test_many_chunks_small_stream():
 
 @pytest.mark.parametrize("n_chunks", [1, 3, 64])
 def test_explicit_chunk_counts(n_chunks):
-    """``n_chunks`` bypasses the tuner: no trial is recorded."""
+    """``n_chunks`` sets the chunk count; the planes stay bit-identical."""
     img = np.random.default_rng(8).integers(0, 256, (96, 128, 3), dtype=np.uint8)
     data = encode_rgb(img, quality=90, subsampling=(2, 2))
-    before = rt.spec_tuner_snapshot()
     _assert_spec_equals_seq(data, n_chunks=n_chunks, n_threads=4)
-    assert rt.spec_tuner_snapshot() == before
+
+
+@pytest.mark.parametrize("n_threads,n_chunks,want", [(2, None, 8),
+                                                     (3, None, 12),
+                                                     (2, 5, 5)])
+def test_chunk_count_is_four_per_thread(monkeypatch, n_threads, n_chunks,
+                                        want):
+    """Without ``n_chunks`` the speculative decode takes ``4 * n_threads``
+    chunks, the first count the JAX runtime's tuner tries."""
+    lib = rt.load()
+    seen = []
+
+    class Spy:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def jt_decode_scan_planes_spec(self, *args):
+            seen.append(args[-2:])
+            return lib.jt_decode_scan_planes_spec(*args)
+
+    monkeypatch.setattr(rt, "load", Spy)
+    img = np.random.default_rng(11).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    data = encode_rgb(img, quality=90)
+    got = rt.native_decode_planes(parse_jpeg(data), n_threads=n_threads,
+                                  speculative=True, n_chunks=n_chunks,
+                                  reuse_buffer=False)
+    assert seen == [(want, n_threads)]
+    want_planes = ref_rt.native_decode_planes(ref_parse(data),
+                                              speculative=False,
+                                              reuse_buffer=False)
+    for a, b in zip(got, want_planes):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_low_entropy_stream():
@@ -68,53 +98,6 @@ def test_low_entropy_stream():
     sequential fallback must keep it bit-identical."""
     _assert_spec_equals_seq(encode_rgb(np.full((256, 256, 3), 128, np.uint8),
                                        quality=85))
-
-
-def test_chunk_tuner_persists_across_processes(tmp_path, monkeypatch):
-    """The tuner's chosen chunk count persists per (geometry, cores,
-    library), so a fresh process starts on the tuned value, after one
-    confirmation trial per candidate."""
-    monkeypatch.setattr(rt, "_SPEC_TUNER_PATH",
-                        str(tmp_path / "spec_tuner.json"))
-    img = np.random.default_rng(9).integers(0, 256, (128, 128, 3), dtype=np.uint8)
-    plan = parse_jpeg(encode_rgb(img, quality=90))
-    key = rt._spec_key(plan)
-    assert key == ref_rt._spec_key(ref_parse(encode_rgb(img, quality=90)))
-    rt._spec_persist_store(key, 24)
-    with rt._spec_tuner_lock:
-        rt._spec_tuner.pop(key, None)
-    confirm = [rt._spec_chunks(plan, n_threads=4) for _ in range(3)]
-    assert sorted(confirm) == [16, 24, 32]
-    for k in confirm:
-        rt._spec_feedback(plan, k, 0.010 + 0.001 * k)
-    assert rt._spec_chunks(plan, n_threads=4) == 24  # pick unchanged
-    snap = rt.spec_tuner_snapshot()[str(key)]
-    assert snap["chosen"] == 24
-    assert all(v is not None for v in snap["best_ms"].values())
-    # corrupt file degrades to trialing, never raises
-    (tmp_path / "spec_tuner.json").write_text("{broken")
-    with rt._spec_tuner_lock:
-        rt._spec_tuner.pop(key, None)
-    assert rt._spec_chunks(plan, n_threads=4) in (16, 24, 32)
-
-
-def test_chunk_tuner_trials_then_picks_the_fastest(tmp_path, monkeypatch):
-    """Without a persisted pick: two trials per candidate in turn, then
-    the fastest, which is persisted under the library's name."""
-    path = tmp_path / "spec_tuner.json"
-    monkeypatch.setattr(rt, "_SPEC_TUNER_PATH", str(path))
-    img = np.random.default_rng(10).integers(0, 256, (136, 120, 3), dtype=np.uint8)
-    plan = parse_jpeg(encode_rgb(img, quality=90))
-    key = rt._spec_key(plan)
-    with rt._spec_tuner_lock:
-        rt._spec_tuner.pop(key, None)
-    trials = [rt._spec_chunks(plan, n_threads=2) for _ in range(6)]
-    assert trials == [8, 12, 16, 8, 12, 16]
-    for k in trials:
-        rt._spec_feedback(plan, k, {8: 0.03, 12: 0.01, 16: 0.02}[k])
-    assert rt._spec_chunks(plan, n_threads=2) == 12
-    stored = path.read_text()
-    assert "so=libjpegtpu-" in stored and stored.endswith("12}")
 
 
 def _boundaries(plan):
