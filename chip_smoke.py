@@ -61,6 +61,25 @@ C++ speculative decode and K3 on the same frame, K7's byte bound, and its
 longest lane's symbols (the serial depth) with an estimate, not a bound, of
 their time.
 
+The ``scale_out`` phase, right after the main path, drives the sharded
+routes of ``jpeg_tpu_torch/parallel/`` (``mesh.py``, ``batch.py``, the
+corpus decoder's ``mesh=``, ``dryrun.py``), each held bit for bit to its
+unsharded route, with the kernels it launches counted:
+``decode_batch_fast(mesh=make_mesh())`` (the visible cards) and over a
+(2, 2) grid that names this card four times, on the eight 3840x2160 frames
+(K1 once a data shard); ``decode_batch_rows_sp_fast`` on that grid over
+four 3840x2048 frames encoded by the port (K1 once a band, at the band's
+geometry), and its refusal of the 3840x2160 geometry (135 MCU rows hold no
+whole K1 bands per shard), as JAX refuses it; ``decode_batch_rows_sp`` on
+a (2, 3) grid and ``decode_batch_with_metrics`` (counts exact) over two
+3840x2160 frames; ``encode_batch_device(mesh=)`` on the eight 4K frames
+(K2 once a data shard); ``BatchedCorpusDecoder(mesh=, hybrid_device=True)``
+on the main path's 64 items (K3 and K1), equal to the unsharded hybrid
+route and the C++ host route; and ``dryrun_multichip(8)`` on the card. It
+times the mesh routes against the unsharded K1 call, with the card's name
+and power limit beside them: what a mesh costs on one card, not a scaling
+figure.
+
 Two phases cover the rest of the format matrix. ``entropy_names`` runs
 the main path's claim (eight 4K frames, 1,080 lanes) through K3 under every
 device-entropy tier name of the JAX package (v1, v2, v3, the v2 batch and
@@ -146,6 +165,9 @@ QUALITY = 85
 FORMATS_4K = (3840, 2160)     # the formats phase's frames (width, height)
 FORMATS_SMALL = (512, 384)    # its Python-coded and end-to-end lossless ones
 RESTART_4K = 240  # MCUs per restart interval: one per MCU row of a 4K frame
+# The scale-out phase's band frames: 4K wide, 128 MCU rows (whole K1 bands
+# per seg shard; 2160 rows, 135 MCU rows, split into none).
+BAND_FRAME = (3840, 2048)
 K3_FRAMES = (1, 8, 32)  # 4K frames per timed K3 launch (135 lanes each)
 K3_INPUTS = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
              "skip", "pair", "skip_hv", "skip_canon", "skip_slots")
@@ -680,6 +702,12 @@ def run() -> list[dict]:
         p = psnr(hybrid[k].rgb, want)
         check(p > 30.0, f"{name}: PSNR vs its source image {p:.2f} dB > 30")
 
+    # 5b. The scale-out layer: the sharded routes under meshes.
+    t0 = time.perf_counter()
+    scale = scale_out(dev, card, items, hybrid, host_res, sources)
+    print(f"scale-out phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    del host_res
+
     # 6.-8. The encoder: K2 against its plain version, the encode path, and
     #    encode -> decode.
     frames = [sources[i % 2] for i in range(BATCH)]
@@ -724,6 +752,8 @@ def run() -> list[dict]:
          "launches": k1_launches, "launches_round_trip": k1_rt_launches,
          "launches_mixed_corpus": k1_mixed_launches,
          "launches_cli_corpus": cli["k1"],
+         "launches_scale_out": {k: v["K1"] for k, v in scale["launches"].items()},
+         "scale_out_ms": {k: v for k, v in scale.items() if k != "launches"},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
          "registers": attrs["exact"]["registers"],
@@ -750,7 +780,8 @@ def run() -> list[dict]:
         {"name": "K2 fused_encode", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_encode.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:410",
-         "launches": k2_launches, **k2_rec, "library_ms": None},
+         "launches": k2_launches, **k2_rec, "library_ms": None,
+         "launches_scale_out": {k: v["K2"] for k, v in scale["launches"].items()}},
         {"name": "K3 huffman_lanes", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
@@ -758,6 +789,7 @@ def run() -> list[dict]:
          "launches_mixed_corpus": k3_mixed_launches,
          "launches_cli_corpus": cli["k3"],
          "launches_entropy_names": k3_names,
+         "launches_scale_out": {k: v["K3"] for k, v in scale["launches"].items()},
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          **k3_bnd, "library_ms": None, "frames": BATCH,
          "ms_by_frames": {str(f): t[0] for f, t in k3_time.items()},
@@ -2170,6 +2202,195 @@ def kernel_times(package_dir: str) -> None:
         print(f"passes {label}: " + (", ".join(
             f"{k} {v:.4f} ms" for k, v in sorted(found.items()))
             or "not measured (the profiler saw no device time)"), flush=True)
+
+
+def scale_out(dev, card: str, items, hybrid, host_res, sources) -> dict:
+    """The scale-out layer (``parallel/mesh.py``, ``parallel/batch.py``,
+    ``parallel/pipeline.py``, ``parallel/dryrun.py``) on the card: each
+    sharded route bit for bit with its unsharded route, the kernels it
+    launches counted with the counters set to 0 just before it. Meshes:
+    ``make_mesh()`` over the visible cards, and grids that name this card
+    several times (shards on one device run in turn). Times show what the
+    mesh route costs on one card; they are no scaling figure. Returns the
+    launches of each drive by kernel."""
+    from collections import Counter
+
+    import torch
+
+    from jpeg_tpu_torch import encode_rgb
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.models.decoder import (
+        PipelineGeometry,
+        decode_coefficients_host,
+        plan_matrices,
+    )
+    from jpeg_tpu_torch.ops import fused_encode as k2
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.parallel import batch
+    from jpeg_tpu_torch.parallel.dryrun import dryrun_multichip
+    from jpeg_tpu_torch.parallel.mesh import make_mesh
+    from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
+
+    counters = {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k3.LAUNCHES}
+    launches = {}
+
+    def drive(name, fn):
+        """``fn()`` with every counter set to 0 just before it, read just
+        after; returns its result."""
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = {k: c.value for k, c in counters.items()}
+        return out
+
+    # a. make_mesh() over the visible cards, and a (2, 2) grid of this card.
+    mesh = make_mesh()
+    n_cards = torch.cuda.device_count()
+    check(mesh.shape == {"data": n_cards, "seg": 1},
+          f"make_mesh() over the visible cards: {mesh.shape}")
+    grid = make_mesh(2, 2, devices=[dev] * 4)
+    plans = [parse_jpeg(read(FRAMES_4K[i % 2])) for i in range(BATCH)]
+    planes, qtabs, geom, _ = k1_inputs(plans, dev)
+    want = batch.decode_batch_fast(planes, qtabs, geom, device=dev)
+    for name, m in (("fast_mesh", mesh), ("fast_grid", grid)):
+        got = drive(name, lambda: batch.decode_batch_fast(planes, qtabs, geom,
+                                                          mesh=m))
+        check(torch.equal(got, want) and launches[name]["K1"]
+              == m.shape["data"],
+              f"decode_batch_fast(mesh={m.shape}) on {BATCH} 4K frames == "
+              f"the unsharded K1 call bit for bit; K1 launched "
+              f"{launches[name]['K1']} times, once per data shard")
+        del got
+    t = {}  # in turns: unsharded, (1, 1) mesh, (2, 2) grid, unsharded
+    for name, call in (
+            ("unsharded", lambda: batch.decode_batch_fast(
+                planes, qtabs, geom, device=dev)),
+            ("mesh", lambda: batch.decode_batch_fast(
+                planes, qtabs, geom, mesh=mesh)),
+            ("grid", lambda: batch.decode_batch_fast(
+                planes, qtabs, geom, mesh=grid)),
+            ("unsharded again", lambda: batch.decode_batch_fast(
+                planes, qtabs, geom, device=dev))):
+        t[name] = (cuda_ms(call, 10, 2, queued=True), cuda_ms(call, 10, 2))
+    print(f"decode_batch_fast {BATCH}x4K, ms queued / unqueued (median, CUDA "
+          "events; " + card + "): " + ", ".join(
+              f"{k} {q:.4f} / {u:.4f}" for k, (q, u) in t.items()), flush=True)
+    times = {"fast_unsharded_ms": t["unsharded"][0],
+             "fast_mesh_ms": t["mesh"][0], "fast_grid_ms": t["grid"][0],
+             "fast_unsharded_again_ms": t["unsharded again"][0]}
+    try:
+        batch.decode_batch_rows_sp_fast(planes, qtabs, geom, grid)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "decode_batch_rows_sp_fast refuses the 4K geometry (135 "
+          "MCU rows hold no whole 8-row bands per seg shard), as JAX does")
+    del planes, qtabs, want
+
+    # b. Bands over seg: K1 at the band's geometry on 3840x2048 frames.
+    streams = [encode_rgb(synthetic_image(*BAND_FRAME, seed=seed),
+                          quality=QUALITY, subsampling=(2, 2),
+                          restart_interval_mcus=RESTART_4K)
+               for seed in (20, 21)]
+    bplans = [parse_jpeg(streams[i % 2]) for i in range(4)]
+    planes, qtabs, bgeom, _ = k1_inputs(bplans, dev)
+    want = batch.decode_batch_fast(planes, qtabs, bgeom, device=dev)
+    got = drive("rows_sp_fast", lambda: batch.decode_batch_rows_sp_fast(
+        planes, qtabs, bgeom, grid))
+    check(torch.equal(got, want) and launches["rows_sp_fast"]["K1"] == 4,
+          f"decode_batch_rows_sp_fast on a (2, 2) grid, 4 "
+          f"{BAND_FRAME[0]}x{BAND_FRAME[1]} frames: == the unsharded K1 call "
+          f"bit for bit; K1 launched {launches['rows_sp_fast']['K1']} times, "
+          f"once per band at its local geometry (mcus_y "
+          f"{bgeom.mcus_y // 2} of {bgeom.mcus_y})")
+    del got
+    band = cuda_ms(lambda: batch.decode_batch_rows_sp_fast(
+        planes, qtabs, bgeom, grid), 10, 2, queued=True)
+    whole = cuda_ms(lambda: batch.decode_batch_fast(
+        planes, qtabs, bgeom, device=dev), 10, 2, queued=True)
+    print(f"4x{BAND_FRAME[0]}x{BAND_FRAME[1]}: band route {band:.4f} ms, "
+          f"unsharded K1 call "
+          f"{whole:.4f} ms (median, CUDA events, queued; {card})", flush=True)
+    times.update(rows_sp_fast_ms=band, rows_sp_fast_unsharded_ms=whole)
+    del planes, qtabs, want
+
+    # c. The compat route over (data, seg) and its metrics at 4K: n_seg 3
+    #    divides the 135 MCU rows.
+    cplans = [parse_jpeg(read(FRAMES_4K[i])) for i in range(2)]
+    cgeom = PipelineGeometry.of(cplans[0])
+    coeffs = torch.from_numpy(np.stack(
+        [decode_coefficients_host(p).copy() for p in cplans])).to(dev)
+    mats = torch.from_numpy(np.stack([plan_matrices(p) for p in cplans])).to(dev)
+    want = batch.decode_batch(coeffs, mats, cgeom, device=dev)
+    rows3 = make_mesh(2, 3, devices=[dev] * 6)
+    t0 = time.perf_counter()
+    got, frames = batch.decode_batch_rows_sp(coeffs, mats, cgeom, rows3)
+    torch.cuda.synchronize()
+    rows_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(got, want) and frames == 2,
+          "decode_batch_rows_sp on a (2, 3) grid, 2 3840x2160 frames: == the "
+          f"unsharded compat decode bit for bit, {frames} frames")
+    got, frames, blocks = batch.decode_batch_with_metrics(coeffs, mats, cgeom,
+                                                          grid)
+    check(torch.equal(got, want) and frames == 2
+          and blocks == 2 * cgeom.total_blocks,
+          f"decode_batch_with_metrics on the (2, 2) grid: == the unsharded "
+          f"decode, frames {frames}, blocks {blocks} (exact)")
+    print(f"decode_batch_rows_sp 2x4K on (2, 3): {rows_ms:.1f} ms (host "
+          f"clock, first call; {card})", flush=True)
+    del coeffs, mats, got, want
+
+    # d. K2 over the data axis.
+    frames8 = [sources[i % 2] for i in range(BATCH)]
+    egeom, rgb, iq = k2_inputs(frames8, dev, subsampling=(2, 2))
+    want = batch.encode_batch_device(rgb, iq, egeom, device=dev)
+    got = drive("encode", lambda: batch.encode_batch_device(rgb, iq, egeom,
+                                                            mesh=grid))
+    check(all(torch.equal(g, w) for g, w in zip(got, want))
+          and launches["encode"]["K2"] == 2,
+          f"encode_batch_device(mesh=(2, 2) grid) on {BATCH} 4K frames == the "
+          f"unsharded K2 call bit for bit; K2 launched "
+          f"{launches['encode']['K2']} times, once per data shard")
+    del rgb, iq, got, want
+
+    # e. The main path's corpus under the grid: K3's device thread, then per
+    #    geometry bucket one K1 launch a data shard for the largest multiple
+    #    of the grid's size (60 of the 62 4K frames) and one for the rest.
+    buckets = Counter(PipelineGeometry.of(parse_jpeg(d)) for d in items)
+    expect = sum((grid.shape["data"] if n >= grid.size else 0)
+                 + (1 if n % grid.size else 0) for n in buckets.values())
+    dec = BatchedCorpusDecoder(hybrid_device=True, device_batch=BATCH,
+                               device=dev, mesh=grid)
+    t0 = time.perf_counter()
+    res = drive("corpus", lambda: dec.decode_all(items))
+    wall = time.perf_counter() - t0
+    dec.close()
+    n = launches["corpus"]
+    check(all(r.ok for r in res) and n["K1"] == dec.pixel_launches == expect
+          and n["K3"] > 0 and dec.device_frames > 0,
+          f"BatchedCorpusDecoder(mesh=(2, 2) grid, hybrid_device=True) on the "
+          f"{len(items)} items: K1 launched {n['K1']} times (expected "
+          f"{expect}: buckets of {sorted(buckets.values())} frames), K3 "
+          f"{n['K3']} times, {dec.device_frames} frames decoded by K3")
+    check(all(np.array_equal(r.rgb, h.rgb) and np.array_equal(r.rgb, c.rgb)
+              for r, h, c in zip(res, hybrid, host_res)),
+          "every frame under the mesh == the unsharded hybrid route == the "
+          "C++ host route, bit for bit")
+    print(f"corpus under the (2, 2) grid: {len(items)} frames in {wall:.3f} s "
+          f"= {len(items) / wall:.2f} frames/s (host clock, transfers "
+          f"included; {card})", flush=True)
+    del res
+
+    # f. Every sharded route once more, small, over eight shards of this
+    #    card.
+    out = drive("dryrun", lambda: dryrun_multichip(8, devices=[dev] * 8))
+    check(launches["dryrun"]["K1"] > 0 and launches["dryrun"]["K3"] > 0,
+          f"dryrun_multichip(8) on the card: mesh {out['mesh']}, launches "
+          f"{launches['dryrun']}")
+    return {"launches": launches, **times}
 
 
 def encode_path(frames) -> tuple[list[bytes], int]:

@@ -21,6 +21,11 @@ The hybrid corpus decode:
   and the thread-pooled ``CorpusDecoder``), and ``decode_batch``, the compat
   pipeline over a batch (``parallel/batch.py``).
 
+Scale-out (``parallel/``): a (data, seg) device grid (``mesh.py``), the
+sharded batch decoders and encoder (``batch.py``), the corpus decoder's
+``mesh=``, multi-process coordination on ``torch.distributed``
+(``distributed.py``, ``corpus --distributed``) and ``dryrun.py``.
+
 The encoder (``models/encoder.py``):
 
 - ``encode_rgb`` (8 or 12 bits, Huffman or arithmetic),

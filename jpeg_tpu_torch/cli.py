@@ -15,8 +15,9 @@ Differences from the JAX CLI:
   command, and a missing Pillow is an error naming it;
 - ``encode --precision 12`` reads a 16-bit ``.ppm`` (maxval 4095) or
   promotes 8-bit samples (``<< 4``), as the JAX CLI does;
-- ``corpus --distributed`` raises ``NotImplementedError`` naming its
-  ``ROADMAP.md`` item (8).
+- ``corpus --distributed`` joins a ``torch.distributed`` gloo group
+  configured by torchrun's variables (``MASTER_ADDR``, ``MASTER_PORT``,
+  ``WORLD_SIZE``, ``RANK``), where the JAX CLI reads ``JAX_*`` ones.
 """
 
 from __future__ import annotations
@@ -149,14 +150,27 @@ def cmd_encode(args) -> int:
 
 def cmd_corpus(args) -> int:
     """Decode a corpus directory with resume manifest + JSON metrics."""
+    from jpeg_tpu_torch.parallel import distributed
+
+    dev = _device(args.device)
+    if args.distributed:
+        # Multi-process run: the group supplies this process's shard index
+        # (the static --process-index/--count flags are ignored).
+        args.process_index, args.process_count = distributed.initialize()
+        try:
+            return _corpus(args, dev)
+        finally:
+            distributed.shutdown()
+    return _corpus(args, dev)
+
+
+def _corpus(args, dev) -> int:
     from jpeg_tpu_torch.io.corpus import list_corpus, shard_items
-    from jpeg_tpu_torch.models.decoder import decode_file, not_ported
+    from jpeg_tpu_torch.models.decoder import decode_file
+    from jpeg_tpu_torch.parallel import distributed
     from jpeg_tpu_torch.utils.manifest import Manifest
     from jpeg_tpu_torch.utils.profiling import StageTimer
 
-    if args.distributed:
-        raise not_ported("multi-host corpus decode (--distributed)", 8)
-    dev = _device(args.device)
     paths = list_corpus(args.directory)
     paths = shard_items(paths, args.process_index, args.process_count)
     manifest = Manifest(args.manifest, args.process_index) if args.manifest else None
@@ -222,6 +236,15 @@ def cmd_corpus(args) -> int:
         "process_index": args.process_index,
         "stages": timer.report(),
     }
+    if args.distributed:
+        # Totals across processes: every process reports the same aggregate
+        # block (sum of frames and of per-process rates) beside its own.
+        report["aggregate"] = distributed.aggregate_metrics({
+            "decoded": float(done),
+            "failed": float(failed),
+            "frames_per_s": done / wall if wall > 0 else 0.0,
+        })
+        report["process_count"] = args.process_count
     print(json.dumps(report))
     return 1 if failed and args.strict else 0
 
@@ -374,7 +397,10 @@ def main(argv=None) -> int:
     c.add_argument("--batched", action="store_true",
                    help="geometry-bucketed batch decode (the fast path)")
     c.add_argument("--distributed", action="store_true",
-                   help="multi-host mode; not ported yet (ROADMAP.md item 8)")
+                   help="multi-process mode: join the torch.distributed "
+                        "gloo group that torchrun's MASTER_ADDR, MASTER_PORT, "
+                        "WORLD_SIZE and RANK describe, decode this process's "
+                        "shard and report totals across processes")
     _add_device(c)
     c.set_defaults(fn=cmd_corpus)
 

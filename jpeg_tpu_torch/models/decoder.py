@@ -117,13 +117,6 @@ class PipelineGeometry:
         ]
 
 
-def not_ported(what: str, item: int | str):
-    """The error for a route this package does not run yet."""
-    return NotImplementedError(
-        f"{what} is not ported to jpeg_tpu_torch yet "
-        f"(ROADMAP.md, 'Still to port' item {item})")
-
-
 def fast_path_takes(plan: DecodePlan) -> bool:
     """Whether K1 decodes the plan: 8-bit DCT samples in gray or YCbCr. K1
     bakes in the YCbCr matrix and writes three u8 channels from int16

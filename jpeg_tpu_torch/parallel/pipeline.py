@@ -11,6 +11,13 @@ images, which K1 does not take, are decoded inline by their worker through
 the compat path on the decoder's device (12-bit and lossless frames keep
 their ``uint16`` samples), as in the JAX package.
 
+With a ``mesh`` (:mod:`jpeg_tpu_torch.parallel.mesh`) each bucket's K1
+launch is split over the mesh's ``data`` axis
+(``decode_batch_fast(mesh=...)``); the frames that the mesh's size does
+not divide go unsharded to the decoder's device, as in the JAX package.
+Entropy decode, K3's device thread and the inline compat route stay on
+the decoder's device.
+
 With ``hybrid_device=True`` a device thread also claims batches from the
 back of the work list and decodes their entropy with K3
 (``entropy/device_window.py::decode_coefficients_device5_batch``) while the
@@ -146,18 +153,21 @@ class CorpusDecoder:
 class BatchedCorpusDecoder:
     """Geometry-bucketed corpus decode on ``device``; each bucket through one
     K1 launch, or K1a with ``idct_mode="approx"`` (entropy decode and the
-    inline compat route stay exact).
+    inline compat route stay exact). With ``mesh``, one launch per data
+    shard for the largest multiple of the mesh's size in each bucket, and
+    one unsharded launch on ``device`` for the rest.
 
     Counters (cumulative over :meth:`decode_all` calls): ``device_frames``
     decoded by K3, ``fallback_frames`` claimed by the device thread but sent
     to the host route, ``entropy_launches`` (K3) and ``pixel_launches`` (K1
-    or K1a) made through this decoder.
+    or K1a, one a data shard under a mesh) made through this decoder.
     """
 
     def __init__(self, workers: int | None = None, rounding: str = "truncate",
                  hybrid_device: bool = False, device_batch: int | None = None,
-                 idct_mode: str = "exact", device="cuda"):
+                 idct_mode: str = "exact", device="cuda", mesh=None):
         check_idct_mode(idct_mode)
+        self.mesh = mesh
         self.idct_mode = idct_mode
         self.workers = workers or os.cpu_count() or 1
         self.rounding = rounding
@@ -335,14 +345,25 @@ class BatchedCorpusDecoder:
             else:
                 buckets.setdefault(geom, []).append(i)
         for geom, idxs in buckets.items():
-            bp = [np.stack([parsed[i][3][c] for i in idxs])
-                  for c in range(len(geom.sampling))]
-            bq = np.stack([plan_quant_patterns(parsed[i][1], geom) for i in idxs])
-            planar = decode_batch_fast(bp, bq, geom, self.rounding, self.device,
-                                       self.idct_mode)
-            self.pixel_launches += 1
-            rgb = (planar[:, :, : geom.height, : geom.width]
-                   .permute(0, 2, 3, 1).contiguous().cpu().numpy())
-            for b, i in enumerate(idxs):
-                results[i] = DecodeResult(parsed[i][0], rgb[b])
+            # A mesh takes a multiple of its size (the JAX package's rule);
+            # the rest of the bucket is decoded unsharded.
+            spill_from = (len(idxs) - len(idxs) % self.mesh.size
+                          if self.mesh else len(idxs))
+            for chunk, mesh in ((idxs[:spill_from], self.mesh),
+                                (idxs[spill_from:], None)):
+                if chunk:
+                    self._pixel_stage(parsed, results, geom, chunk, mesh)
         return results
+
+    def _pixel_stage(self, parsed, results, geom, idxs, mesh) -> None:
+        """K1 over one bucket's frames ``idxs``, on ``mesh`` or unsharded."""
+        bp = [np.stack([parsed[i][3][c] for i in idxs])
+              for c in range(len(geom.sampling))]
+        bq = np.stack([plan_quant_patterns(parsed[i][1], geom) for i in idxs])
+        planar = decode_batch_fast(bp, bq, geom, self.rounding, self.device,
+                                   self.idct_mode, mesh=mesh)
+        self.pixel_launches += mesh.shape["data"] if mesh else 1
+        rgb = (planar[:, :, : geom.height, : geom.width]
+               .permute(0, 2, 3, 1).contiguous().cpu().numpy())
+        for b, i in enumerate(idxs):
+            results[i] = DecodeResult(parsed[i][0], rgb[b])

@@ -212,10 +212,21 @@ def test_unported_encode_options_raise_their_item(tmp_path, capsys, opts, item):
         assert f.read() == g.read()
 
 
-def test_distributed_corpus_raises_its_item(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _ours(["corpus", str(tmp_path), "--distributed", "--device", "cpu"],
-              capsys)
+def test_distributed_corpus_raises_its_item(tmp_path, capsys, monkeypatch):
+    """``corpus --distributed`` raised its ROADMAP item (8) until it was
+    ported; now it runs. With no group configured it is one process of one,
+    as in the JAX CLI, and its report has the JAX report's keys,
+    ``aggregate`` and ``process_count`` among them."""
+    for var in ("MASTER_ADDR", "JAX_COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
+    d = _corpus_dir(tmp_path)
+    ours = _report(_ours(["corpus", d, "--distributed", "--device", "cpu"],
+                         capsys)[1])
+    theirs = _report(_theirs(["corpus", d, "--distributed"], capsys)[1])
+    assert ours.keys() == theirs.keys()
+    assert ours["process_count"] == theirs["process_count"] == 1
+    assert ours["aggregate"]["decoded"] == theirs["aggregate"]["decoded"] == 6
+    assert ours["aggregate"]["failed"] == theirs["aggregate"]["failed"] == 1
 
 
 def test_corpus_raises_a_device_not_implemented_error(tmp_path, capsys,

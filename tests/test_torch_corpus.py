@@ -32,6 +32,7 @@ from jpeg_tpu_torch import (
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models import decoder as dec
 from jpeg_tpu_torch.parallel import pipeline
+from jpeg_tpu_torch.parallel.mesh import make_mesh
 
 
 def _pil(img, **kw) -> bytes:
@@ -176,7 +177,7 @@ def test_corpus_decoder_options():
 def test_decode_batch_equals_decode_plan(sub, rounding):
     """The compat pipeline over a bucket (one product per component for the
     batch) equals per-image decode_plan, and is within +-1 u8 of the JAX
-    package's decode_batch."""
+    package's decode_batch; sharded over a mesh it equals itself."""
     gray = sub is None
     streams = [encode_rgb(synthetic_image(88, 56, seed=s)[..., 0] if gray
                           else synthetic_image(88, 56, seed=s), quality=85,
@@ -195,5 +196,5 @@ def test_decode_batch_equals_decode_plan(sub, rounding):
     want = np.asarray(ref_batch.decode_batch(coeffs, mats, ref_geom, rounding))
     diff = np.abs(got.numpy().astype(int) - want.astype(int))
     assert diff.max() <= 1 and (diff > 0).mean() < 0.05
-    with pytest.raises(NotImplementedError, match="item 8"):
-        decode_batch(coeffs, mats, geom, mesh=object(), device="cpu")
+    mesh = make_mesh(n_data=3, devices=["cpu"] * 3)
+    assert torch.equal(decode_batch(coeffs, mats, geom, rounding, mesh), got)

@@ -12,10 +12,12 @@ values differing.
 """
 
 import ast
+import json
 import os
 
 import numpy as np
 import pytest
+import torch
 
 import jpeg_tpu
 from jpeg_tpu import runtime as ref_rt
@@ -284,28 +286,52 @@ def test_sixteen_bit_ppm_read_matches_jax(tmp_path):
         np.testing.assert_array_equal(got, img)
 
 
-def _not_ported_items(path):
-    """The item argument of every ``not_ported(...)`` call in a source."""
+def _not_ported_calls(path) -> int:
+    """How many ``not_ported(...)`` calls a source makes."""
     with open(path) as f:
         tree = ast.parse(f.read())
-    return [ast.literal_eval(n.args[1]) for n in ast.walk(tree)
-            if isinstance(n, ast.Call) and getattr(n.func, "id", None)
-            == "not_ported"]
+    return sum(isinstance(n, ast.Call) and getattr(n.func, "id", None)
+               == "not_ported" for n in ast.walk(tree))
 
 
-def test_only_items_eight_and_nine_stay_unported():
-    """No ``NotImplementedError`` of the port names items 12, 3b, 3c or 7
-    any more; ``cli.py`` and ``parallel/batch.py`` raise item 8 alone."""
+def test_only_items_eight_and_nine_stay_unported(tmp_path, capsys,
+                                                 monkeypatch):
+    """Items 9 and 8 (scale-out), the last, are ported: no module of
+    the port raises a 'Still to port' item or keeps the helper that raised
+    one, and the two routes that raised item 8 run on the CPU:
+    ``decode_batch(mesh=...)`` (equal to the unsharded call) and ``corpus
+    --distributed`` (one process of one without a configured group)."""
+    from jpeg_tpu_torch import cli
+    from jpeg_tpu_torch.parallel.mesh import make_mesh
+
     pkg = os.path.join(REPO, "jpeg_tpu_torch")
-    items = {}
     for root, _dirs, files in os.walk(pkg):
         for name in files:
             if name.endswith(".py"):
                 path = os.path.join(root, name)
-                items[os.path.relpath(path, pkg)] = _not_ported_items(path)
                 with open(path) as f:
                     text = f.read()
-                for gone in ("item 12", "item 3b", "item 3c", "item 7"):
+                assert _not_ported_calls(path) == 0, path
+                for gone in ("Still to port", "not ported to"):
                     assert gone not in text, (path, gone)
-    assert set(sum(items.values(), [])) <= {8, 9}
-    assert items["cli.py"] == [8] and items["parallel/batch.py"] == [8]
+    assert not hasattr(dec, "not_ported")
+
+    streams = [enc.encode_rgb(synthetic_image(40, 24, seed=s), quality=85)
+               for s in range(4)]
+    plans = [parse_jpeg(d) for d in streams]
+    geom = dec.PipelineGeometry.of(plans[0])
+    coeffs = np.stack([dec.decode_coefficients_host(p).copy() for p in plans])
+    mats = np.stack([dec.plan_matrices(p) for p in plans])
+    mesh = make_mesh(n_data=2, n_seg=2, devices=["cpu"] * 4)
+    assert torch.equal(decode_batch(coeffs, mats, geom, mesh=mesh),
+                       decode_batch(coeffs, mats, geom, device="cpu"))
+
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    d = tmp_path / "corpus"
+    d.mkdir()
+    for i, data in enumerate(streams):
+        (d / f"img{i}.jpg").write_bytes(data)
+    capsys.readouterr()
+    assert cli.main(["corpus", str(d), "--distributed", "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["process_count"] == 1 and report["aggregate"]["decoded"] == 4
