@@ -107,6 +107,11 @@ approx, compat,
 ``--engine oracle``), ``encode`` of a P6, ``info`` (also as ``python -m
 jpeg_tpu_torch``) and one K1 launch inside ``device_trace``.
 
+Then the port's bench (``bench_phase``): ``jpeg_tpu_torch.bench.main``
+with 32 headline frames and one repeat, its JSON line printed among these
+lines; its keys, rates, fallback count, card and kernel launches (K1, K1a,
+K2, K3, K5) are checked.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
 result line, and when no CUDA device is present.
@@ -165,6 +170,9 @@ QUALITY = 85
 FORMATS_4K = (3840, 2160)     # the formats phase's frames (width, height)
 FORMATS_SMALL = (512, 384)    # its Python-coded and end-to-end lossless ones
 RESTART_4K = 240  # MCUs per restart interval: one per MCU row of a 4K frame
+# The bench phase's headline corpus: enough 4K frames that the device thread
+# claims a batch (it leaves the host workers three batches).
+BENCH_FRAMES = 32
 # The scale-out phase's band frames: 4K wide, 128 MCU rows (whole K1 bands
 # per seg shard; 2160 rows, 135 MCU rows, split into none).
 BAND_FRAME = (3840, 2048)
@@ -742,6 +750,11 @@ def run() -> list[dict]:
           f"{k1a_twin.differ} of {k1a_twin.values} values differ, smallest "
           f"frame PSNR {k1a_twin.min_psnr:.2f} dB", flush=True)
 
+    # 14. The port's bench (jpeg_tpu_torch/bench.py) in a quick mode.
+    t0 = time.perf_counter()
+    bench = bench_phase(card)
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     print(card, flush=True)  # nvidia-smi name, power limit
     # "launches" counts the main path's run (the hybrid corpus decode for
     # K1 and K3); the round trip's own counts are kept beside them.
@@ -753,6 +766,7 @@ def run() -> list[dict]:
          "launches_mixed_corpus": k1_mixed_launches,
          "launches_cli_corpus": cli["k1"],
          "launches_scale_out": {k: v["K1"] for k, v in scale["launches"].items()},
+         "launches_bench": bench["K1"],
          "scale_out_ms": {k: v for k, v in scale.items() if k != "launches"},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
@@ -761,7 +775,8 @@ def run() -> list[dict]:
         {"name": "K1a fused_plane approx", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:301",
-         "launches": cli["k1a"], "max_abs_err": k1a_twin.max,
+         "launches": cli["k1a"], "launches_bench": bench["K1a"],
+         "max_abs_err": k1a_twin.max,
          "twin_differing_share": k1a_twin.differ / k1a_twin.values,
          # null: every frame equal to the twin's
          "twin_min_psnr_db": (None if k1a_twin.min_psnr == float("inf")
@@ -780,7 +795,8 @@ def run() -> list[dict]:
         {"name": "K2 fused_encode", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/fused_encode.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:410",
-         "launches": k2_launches, **k2_rec, "library_ms": None,
+         "launches": k2_launches, "launches_bench": bench["K2"], **k2_rec,
+         "library_ms": None,
          "launches_scale_out": {k: v["K2"] for k, v in scale["launches"].items()}},
         {"name": "K3 huffman_lanes", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
@@ -788,7 +804,7 @@ def run() -> list[dict]:
          "launches": k3_launches, "launches_round_trip": k3_rt_launches,
          "launches_mixed_corpus": k3_mixed_launches,
          "launches_cli_corpus": cli["k3"],
-         "launches_entropy_names": k3_names,
+         "launches_entropy_names": k3_names, "launches_bench": bench["K3"],
          "launches_scale_out": {k: v["K3"] for k, v in scale["launches"].items()},
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          **k3_bnd, "library_ms": None, "frames": BATCH,
@@ -805,7 +821,8 @@ def run() -> list[dict]:
         k7_rec,
         {"name": "K5 idct_only", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
-         "replaces": "jpeg_tpu/ops/pallas_kernels.py:362", **k5},
+         "replaces": "jpeg_tpu/ops/pallas_kernels.py:362", **k5,
+         "launches_bench": bench["K5"]},
         {"name": "K6 idct_only_roll", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:327", **k6},
@@ -2081,6 +2098,49 @@ def check_k2(frames, dev) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
             "frames": len(frames), "ms_1_frame": ms1,
             "plain_ms_1_frame": plain1, "bound_ms_1_frame": bnd1["bound_ms"]}
+
+
+def bench_phase(card: str) -> dict:
+    """``jpeg_tpu_torch.bench.main`` in a quick mode (BENCH_FRAMES headline
+    frames, one repeat), its result line printed among these: its keys are
+    ``bench.KEYS``, every rate finite and > 0, the headline corpus decoded
+    with no fallback and some frames by K3, the card named as here, and
+    K1, K1a, K2, K3 and K5 launched. Returns the launches by kernel."""
+    from jpeg_tpu_torch import bench
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.ops import fused_encode as k2
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.ops import idct_only as k56
+
+    counters = {"K1": k1.LAUNCHES, "K1a": k1.LAUNCHES_APPROX,
+                "K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "K5": k56.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    result = bench.main(["--frames", str(BENCH_FRAMES), "--repeats", "1"])
+    launches = {name: c.value for name, c in counters.items()}
+    detail = result["detail"]
+    check(set(result) == {"metric", "value", "unit", "detail"}
+          and result["metric"] == "frames_per_s_per_chip_4k_decode"
+          and set(detail) == bench.KEYS,
+          f"bench: the result line holds bench.py's keys less those left "
+          f"out, through the renames, plus the port's ({len(detail)} keys)")
+    rates = {k: detail[k] for k in detail["spread"]}
+    check(all(np.isfinite(v) and v > 0 for v in rates.values()),
+          f"bench: all {len(rates)} rates finite and > 0")
+    check(detail["e2e_corpus_fallback_frames"] == 0
+          and detail["e2e_corpus_device_frames"] > 0
+          and detail["e2e_hybrid_device_frames"] > 0
+          and result["value"] == detail["e2e_corpus_fps"],
+          f"bench: headline {result['value']:.2f} frames/s over "
+          f"{BENCH_FRAMES} 4K frames, {detail['e2e_corpus_device_frames']} "
+          f"by K3, {detail['e2e_corpus_fallback_frames']} fallbacks; "
+          f"e2e_hybrid {detail['e2e_hybrid_fps']:.2f} frames/s, "
+          f"{detail['e2e_hybrid_device_frames']} by K3")
+    check(detail["card"] == card and detail["device"] != "cpu",
+          f"bench: card {detail['card']!r}, device {detail['device']!r}")
+    check(all(n > 0 for n in launches.values()),
+          f"bench went through the kernels: launches {launches}")
+    return launches
 
 
 def kernel_times(package_dir: str) -> None:

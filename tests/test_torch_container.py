@@ -170,6 +170,7 @@ def test_import_never_loads_jax():
             "import jpeg_tpu_torch.entropy.device_kernel; "
             "import jpeg_tpu_torch.entropy.device_spec; "
             "import jpeg_tpu_torch.ops.idct_only; "
+            "import jpeg_tpu_torch.bench; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'jpeg_tpu' not in sys.modules, 'jpeg_tpu loaded'")
     env = dict(os.environ, PYTHONPATH=REPO)
