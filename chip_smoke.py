@@ -107,6 +107,23 @@ approx, compat,
 ``--engine oracle``), ``encode`` of a P6, ``info`` (also as ``python -m
 jpeg_tpu_torch``) and one K1 launch inside ``device_trace``.
 
+Then the port's two evidence tools (``jpeg_tpu_torch/tools/``).
+``approx_quality_phase`` runs ``measure_approx_quality.main``: its six
+synthetic cases (4K q70 / q85 / q95, 1080p q85, gray 1080p q90, 4:4:4
+1080p q92) through K1 and K1a, the worst case inside the approx gate.
+``endurance_phase`` writes the main path's 62 4K frames to a temporary
+directory and runs ``endurance.main`` on them: the command line's ``corpus
+--batched --hybrid-device --manifest`` in child processes, a short pass of
+16, the whole corpus killed at 16 images done and resumed in ``--limit
+24`` segments (``--chunk-size 8``), with RSS and the card's memory
+sampled, and a CPU control of 12 images in chunks of 4; its record is
+printed on a line of its own. Every fault it reports raises, and its exit
+code must follow its gate. Neither half of the gate is held here, only
+printed: at this size two processes differ by more than the gate's 10%
+in frames/s with no decay, and the control's RSS moves by up to ~380 MB
+between chunks of 4 (up to ~95 MB an image against the gate's 2.0)
+without a leak.
+
 Then the port's bench (``bench_phase``): ``jpeg_tpu_torch.bench.main``
 with 32 headline frames and one repeat, its JSON line printed among these
 lines; its keys, rates, fallback count, card and kernel launches (K1, K1a,
@@ -750,6 +767,18 @@ def run() -> list[dict]:
           f"{k1a_twin.differ} of {k1a_twin.values} values differ, smallest "
           f"frame PSNR {k1a_twin.min_psnr:.2f} dB", flush=True)
 
+    # 13b. The approx tier's quality gate over the corpus matrix, through
+    #      the port's tool.
+    t0 = time.perf_counter()
+    approx_quality = approx_quality_phase()
+    print(f"approx quality phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13c. The endurance tool: the command line in child processes, killed
+    #      and resumed.
+    t0 = time.perf_counter()
+    endurance_phase(card)
+    print(f"endurance phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 14. The port's bench (jpeg_tpu_torch/bench.py) in a quick mode.
     t0 = time.perf_counter()
     bench = bench_phase(card)
@@ -767,6 +796,7 @@ def run() -> list[dict]:
          "launches_cli_corpus": cli["k1"],
          "launches_scale_out": {k: v["K1"] for k, v in scale["launches"].items()},
          "launches_bench": bench["K1"],
+         "launches_approx_quality": approx_quality["k1"],
          "scale_out_ms": {k: v for k, v in scale.items() if k != "launches"},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
@@ -776,6 +806,7 @@ def run() -> list[dict]:
          "source": "jpeg_tpu_torch/csrc/fused_plane.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:301",
          "launches": cli["k1a"], "launches_bench": bench["K1a"],
+         "launches_approx_quality": approx_quality["k1a"],
          "max_abs_err": k1a_twin.max,
          "twin_differing_share": k1a_twin.differ / k1a_twin.values,
          # null: every frame equal to the twin's
@@ -1069,6 +1100,93 @@ def cli_path(dev, k1a_twin: TwinStats) -> dict:
               f"device_trace: one K1 launch, {len(traces)} trace file naming "
               "fused_plane_kernel")
     return launches
+
+
+def approx_quality_phase() -> dict:
+    """``jpeg_tpu_torch.tools.measure_approx_quality.main`` on the card: its
+    six synthetic cases (4K q70 / q85 / q95, 1080p q85, gray 1080p q90,
+    4:4:4 1080p q92) each through K1 and K1a, its table printed among these
+    lines, the worst case inside docs/APPROX_QUALITY.md's gate. Returns the
+    launches of K1 and K1a."""
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.tools import measure_approx_quality as maq
+
+    for counter in (k1.LAUNCHES, k1.LAUNCHES_APPROX):
+        counter.reset()
+    rc = maq.main([])
+    launches = {"k1": k1.LAUNCHES.value, "k1a": k1.LAUNCHES_APPROX.value}
+    n = len(maq.CASES)
+    check(rc == 0, f"measure_approx_quality: the worst of its {n} cases "
+          f"within the gate (exit code {rc})")
+    check(launches["k1"] >= n and launches["k1a"] >= n,
+          f"measure_approx_quality went through the kernels: K1 "
+          f"{launches['k1']}, K1a {launches['k1a']} launches for {n} cases")
+    return launches
+
+
+def endurance_phase(card: str) -> dict:
+    """``jpeg_tpu_torch.tools.endurance.main`` on the main path's 62 4K
+    frames, written to a temporary directory, in child processes of the
+    command line: a short pass of 16, the whole corpus killed at 16 images
+    done, recycled ``--limit 24`` segments, ``--chunk-size 8``, and a CPU
+    control of 12 images in chunks of 4 (three samples, so that its growth
+    is computed). Its JSON record is printed on a line of its own. Every
+    fault raises: a child that fails, a kill outside the corpus, a segment
+    with a failed image, images after the kill not decoded once, the
+    card's memory not read, no control growth, or a verdict that does not
+    follow the tool's gate. Both halves of the gate are printed, not held:
+    two processes at this size differ by up to 13% in steady frames/s with
+    no trend (5 of 20 such runs on the H100 fell under 0.9), and the
+    control's RSS moved by -110 to +379 MB between its samples in those
+    runs, up to ~95 MB an image at chunks of 4 (PERF.md). Returns the
+    record."""
+    import tempfile
+
+    import torch
+
+    from jpeg_tpu_torch.tools import endurance
+
+    torch.cuda.empty_cache()  # the children read the card's memory
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        os.makedirs(corpus)
+        for i in range(CORPUS_4K):
+            with open(os.path.join(corpus, f"img_{i:05d}.jpg"), "wb") as f:
+                f.write(read(FRAMES_4K[i % 2]))
+        out = os.path.join(tmp, "sustained.json")
+        try:
+            rc = endurance.main([
+                "--images", str(CORPUS_4K), "--corpus", corpus, "--short",
+                "16", "--kill-after", "16", "--limit", "24", "--chunk-size",
+                "8", "--control-images", "12", "--control-chunk", "4",
+                "--out", out, "--timeout", "300"])
+        except RuntimeError as e:
+            raise CheckFailed(f"endurance: {e}") from e
+        with open(out) as f:
+            record = json.load(f)
+    segs = record["segments"]
+    decay = record["steady_state_decay"]
+    growth = record["control_cpu_rss_plateau_mb_per_image"]
+    check(growth is not None
+          and rc == (0 if endurance.passes(decay, growth) else 1),
+          f"endurance: control growth {growth} MB an image computed, exit "
+          f"code {rc} follows the gate")
+    print(f"endurance: steady-state decay {decay} (segments "
+          f"{[s['fps_steady'] for s in segs]} frames/s; gate >= "
+          f"{endurance.MIN_DECAY}), control growth {growth} MB an image "
+          f"(RSS {record['control_cpu_rss_mb']} MB; gate <= "
+          f"{endurance.MAX_CONTROL_GROWTH_MB}): the tool's verdict "
+          f"{'PASS' if rc == 0 else 'FAIL'}, not held here", flush=True)
+    killed = record["killed_after_images"]
+    check(0 < killed < CORPUS_4K and all(s["failed"] == 0 for s in segs)
+          and sum(s["decoded"] for s in segs) == CORPUS_4K - killed
+          and all(s["gpu_mem_max_mb"] for s in segs)
+          and record["card"] == card and record["resolution"] == "3840x2160",
+          f"endurance: killed after {killed} of {CORPUS_4K}, segments "
+          f"{[s['decoded'] for s in segs]} without a failure, card memory "
+          f"{[s['gpu_mem_max_mb'] for s in segs]} MB "
+          f"({segs[0]['gpu_mem_source']}), card {record['card']!r}")
+    return record
 
 
 def check_k4_small(dev) -> int:

@@ -333,8 +333,11 @@ def main(argv=None) -> int:
     d.add_argument("--idct", choices=["exact", "approx"], default="exact",
                    help="approx = K1a on the fast path: the IDCT's operands "
                         "rounded to bf16 as the TPU's DEFAULT precision "
-                        "rounds them (max |diff| <= 2 u8 / PSNR >= 50 dB vs "
-                        "exact, docs/APPROX_QUALITY.md)")
+                        "rounds them (gate: max |diff| <= 2 u8 / PSNR >= 50 "
+                        "dB vs exact, docs/APPROX_QUALITY.md; measured on "
+                        "the H100 by python -m "
+                        "jpeg_tpu_torch.tools.measure_approx_quality, table "
+                        "in PERF.md)")
     d.add_argument("--path", choices=["compat", "fast"], default="compat",
                    help="fast = plane-layout pipeline (the K1 kernel)")
     d.add_argument("--upsample", choices=["replicate", "fancy"],
@@ -381,7 +384,9 @@ def main(argv=None) -> int:
     c.add_argument("--strict", action="store_true", help="exit 1 on any failure")
     c.add_argument("--idct", choices=["exact", "approx"], default="exact",
                    help="approx IDCT tier for the batched pixel kernel (K1a; "
-                        "quality-gated, docs/APPROX_QUALITY.md)")
+                        "quality-gated, docs/APPROX_QUALITY.md; the H100's "
+                        "measurement of the gate is in PERF.md, by python -m "
+                        "jpeg_tpu_torch.tools.measure_approx_quality)")
     c.add_argument("--hybrid-device", action="store_true",
                    help="with --batched: the card also entropy-decodes "
                         "batches of images (the K3 kernel) beside the host "

@@ -171,6 +171,8 @@ def test_import_never_loads_jax():
             "import jpeg_tpu_torch.entropy.device_spec; "
             "import jpeg_tpu_torch.ops.idct_only; "
             "import jpeg_tpu_torch.bench; "
+            "import jpeg_tpu_torch.tools.endurance; "
+            "import jpeg_tpu_torch.tools.measure_approx_quality; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'jpeg_tpu' not in sys.modules, 'jpeg_tpu loaded'")
     env = dict(os.environ, PYTHONPATH=REPO)
