@@ -5,9 +5,10 @@
 
 Builds the C++ entropy runtime and entropy encoder (the port's own copies
 of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``) and
-the six CUDA libraries (K1-K7, K1a with K1) from this checkout (all at
-once), checks each kernel against its plain PyTorch version at the shapes
-its path gives it (K1, its approx tier K1a and K2 on every sampling they
+the six CUDA libraries (K1-K7, K1a with K1), the K3 pass-1 ablation's
+library and two K1 cell variants from this checkout (all at once), checks
+each kernel against its plain PyTorch version at the shapes its path gives
+it (K1, its approx tier K1a and K2 on every sampling they
 take, K3 and K4 on corrupt streams and eight 4K frames, K7 on a 4K frame
 without restart markers and at 512x384; K1a, whose IDCT
 runs on the tensor cores, to the tolerance of their order of sums, the
@@ -124,6 +125,22 @@ in frames/s with no decay, and the control's RSS moves by up to ~380 MB
 between chunks of 4 (up to ~95 MB an image against the gate's 2.0)
 without a leak.
 
+Then the port's kernel-study tools (``tools_phase``): the corrupt-stream
+fuzz (``jpeg_tpu_torch/tools/fuzz.py``) over seeds 0-2 of its 20 variants,
+each case through both engines on the card, K1's fast path against the
+CPU, K3 and K4 against their twins and the C++ decoder, K7 against the C++
+decoder, and the hybrid corpus decoder with the case in a claim of 4K
+frames, no problem and every kernel reached by a case; the same seeds'
+device routes in a child under ``compute-sanitizer --tool memcheck`` (0
+errors), where the toolkit has it (where it refuses the card, as
+compute-sanitizer 2025.2.1 refuses an NVIDIA H100 80GB HBM3, its refusal
+is printed); two rungs of K7's ladder
+(``bench_device_spec.run``, which also times the ``speculative`` phase's
+whole calls) on both of its 4K frames; K3's pass-1 ablation, variants (a)
+and (b), on the 2,025-lane stream, (a) equal to the shipping pass 1's
+records; and two K1 cells of the sweep at 8 4K frames, K1 and K1a bit for
+bit with the shipping cell.
+
 Then the port's bench (``bench_phase``): ``jpeg_tpu_torch.bench.main``
 with 32 headline frames and one repeat, its JSON line printed among these
 lines; its keys, rates, fallback count, card and kernel launches (K1, K1a,
@@ -199,10 +216,11 @@ K3_INPUTS = ("data", "lane_start", "lane_len", "lane_nblk", "lane_out",
 K7_INPUTS = ("data", "bit_start", "chunk_end_bit", "seg_end_bit", "skip",
              "skip_hv", "skip_canon", "skip_slots")
 # An estimate, not a bound, of K7's serial time: its longest lane's symbols
-# one after another at ~240 cycles a step (K3's pass 1 as measured on the
-# H100, PERF.md section 7; not a floor of the card), at the SM's 1,980 MHz
-# boost clock (H100 SXM data sheet).
-K3_CYCLES_PER_STEP_EST = 240
+# one after another at ~370 cycles a step (K3's pass 1 on its longest lane,
+# jpeg_tpu_torch/tools/ablate_kernel.py's full variant on the H100, PERF.md
+# section 6; not a floor of the card), at the SM's 1,980 MHz boost clock
+# (H100 SXM data sheet).
+K3_CYCLES_PER_STEP_EST = 370
 SM_CLOCK_HZ = 1.98e9
 # K1 buckets beyond the main path's: luma (h, v) over 1x1 chroma, and gray.
 K1_SAMPLINGS = {"1x1": (1, 1), "2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2),
@@ -234,6 +252,22 @@ APPROX_MIN_PSNR = 50.0
 K1A_TWIN_MAX_DIFF = 2
 K1A_TWIN_MAX_SHARE = 1e-3
 K1A_TWIN_MIN_PSNR = 70.0
+
+# The tools phase: fuzz seeds [0, 3) over every route (and again under
+# compute-sanitizer's memcheck, clean corpus frames at 256x128, no twins:
+# those seeds were held to them just before), two rungs of K7's ladder,
+# the pass-1 ablation's (a) and (b) on the 2,025-lane stream, two K1 cells
+# at 8 frames. The sanitizer's own line when it refuses the card (as
+# compute-sanitizer 2025.2.1 refuses an NVIDIA H100 80GB HBM3): printed,
+# not passed.
+FUZZ_SEEDS = (0, 3)
+SANITIZER_CLEAN = "256x128"
+SANITIZER_TIMEOUT_S = 420
+LADDER_CONFIGS = ((512, 8), (2048, 4))
+REFUSED_BY_SANITIZER = ("========= Error: Device not supported. Please refer "
+                        "to the \"Supported Devices\" section of the "
+                        "sanitizer documentation")
+SWEEP_SHAPES = ((128, 128), (256, 256))
 
 
 class CheckFailed(Exception):
@@ -453,6 +487,7 @@ def run() -> list[dict]:
     from jpeg_tpu_torch.ops import fused_plane as k1
     from jpeg_tpu_torch.ops import idct_only as k56
     from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
+    from jpeg_tpu_torch.tools import ablate_kernel
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -478,7 +513,12 @@ def run() -> list[dict]:
               ("K3 huffman_lanes.cu (nvcc sm_90a)", k3.load_kernel),
               ("K4 huffman_words.cu (nvcc sm_90a)", k4.load_kernel),
               ("K7 huffman_spec.cu (nvcc sm_90a)", k7.load_kernel),
-              ("K5/K6 idct_only.cu (nvcc sm_90a)", k56.load_kernel))
+              ("K5/K6 idct_only.cu (nvcc sm_90a)", k56.load_kernel),
+              ("K3 pass-1 ablation tools/csrc/k3_ablate.cu (nvcc sm_90a)",
+               ablate_kernel.load_kernel),
+              *((f"K1 cell {t}x{n} variant (nvcc sm_90a)",
+                 lambda cell=(t, n): k1.load_kernel(cell))
+                for t, n in SWEEP_SHAPES))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = [(name, pool.submit(timed, load)) for name, load in builds]
@@ -779,6 +819,13 @@ def run() -> list[dict]:
     endurance_phase(card)
     print(f"endurance phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 13d. The kernel-study tools: the corrupt-stream fuzz of every route
+    #      (and under compute-sanitizer), K7's ladder, K3's pass-1
+    #      ablation, K1's cell sweep.
+    t0 = time.perf_counter()
+    tools = tools_phase(dev, card)
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 14. The port's bench (jpeg_tpu_torch/bench.py) in a quick mode.
     t0 = time.perf_counter()
     bench = bench_phase(card)
@@ -797,6 +844,7 @@ def run() -> list[dict]:
          "launches_scale_out": {k: v["K1"] for k, v in scale["launches"].items()},
          "launches_bench": bench["K1"],
          "launches_approx_quality": approx_quality["k1"],
+         "launches_tools": tools["K1"],
          "scale_out_ms": {k: v for k, v in scale.items() if k != "launches"},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          **k1_bnd, "library_ms": None, "frames": CORPUS_4K,
@@ -807,6 +855,7 @@ def run() -> list[dict]:
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:301",
          "launches": cli["k1a"], "launches_bench": bench["K1a"],
          "launches_approx_quality": approx_quality["k1a"],
+         "launches_tools": tools["K1a"],
          "max_abs_err": k1a_twin.max,
          "twin_differing_share": k1a_twin.differ / k1a_twin.values,
          # null: every frame equal to the twin's
@@ -836,6 +885,7 @@ def run() -> list[dict]:
          "launches_mixed_corpus": k3_mixed_launches,
          "launches_cli_corpus": cli["k3"],
          "launches_entropy_names": k3_names, "launches_bench": bench["K3"],
+         "launches_tools": tools["K3"],
          "launches_scale_out": {k: v["K3"] for k, v in scale["launches"].items()},
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          **k3_bnd, "library_ms": None, "frames": BATCH,
@@ -845,11 +895,12 @@ def run() -> list[dict]:
         {"name": "K4 huffman_words", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_words.cu",
          "replaces": "jpeg_tpu/entropy/device_kernel.py:251",
-         "launches": k4_launches, "max_abs_err": max(k4_err, k4_4k_err),
+         "launches": k4_launches, "launches_tools": tools["K4"],
+         "max_abs_err": max(k4_err, k4_4k_err),
          "ms": k4_ms, "plain_ms": k4_plain_ms, **k4_bnd, "library_ms": None,
          "frames": 1, "ms_8_frames": k4_8,
          "bound_ms_8_frames": k4_8_bnd["bound_ms"]},
-        k7_rec,
+        {**k7_rec, "launches_tools": tools["K7"]},
         {"name": "K5 idct_only", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/idct_only.cu",
          "replaces": "jpeg_tpu/ops/pallas_kernels.py:362", **k5,
@@ -1187,6 +1238,129 @@ def endurance_phase(card: str) -> dict:
           f"{[s['gpu_mem_max_mb'] for s in segs]} MB "
           f"({segs[0]['gpu_mem_source']}), card {record['card']!r}")
     return record
+
+
+def tools_phase(dev, card: str) -> dict:
+    """The port's kernel-study tools (``jpeg_tpu_torch/tools/``), with the
+    launch counters set to 0 just before and read just after:
+
+    - ``fuzz.run`` over seeds FUZZ_SEEDS of its 20 variants, every route:
+      the oracle and native engines on the card, K1 (fast path) against
+      the CPU, K3 and K4 against their twins and the C++ decoder, K7
+      against the C++ decoder, and the hybrid corpus decoder with each case
+      in a claim of 4K frames; no problem, and every kernel route reached
+      by a case (K3 taking the case itself on the corpus route);
+    - the same seeds' device routes in a child process under
+      ``compute-sanitizer --tool memcheck --error-exitcode 1``, found
+      beside nvcc (a missing tool is printed, not hidden);
+    - ``bench_device_spec.run`` at LADDER_CONFIGS on both of its frames,
+      each bit for bit with the C++ decoder;
+    - ``ablate_kernel.ablate`` variants (a) and (b) on the 2,025-lane
+      stream, (a) equal to the shipping pass 1's records;
+    - ``sweep_tiles.sweep`` at SWEEP_SHAPES on 8 4K frames, K1 and K1a
+      bit-identical to the shipping cell.
+
+    Returns the launches by kernel."""
+    import torch
+
+    from jpeg_tpu_torch.entropy import device_huffman as k3
+    from jpeg_tpu_torch.entropy import device_kernel as k4
+    from jpeg_tpu_torch.entropy import device_spec as k7
+    from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.runtime import native_decode_coefficients
+    from jpeg_tpu_torch.tools import ablate_kernel, bench_device_spec, fuzz
+    from jpeg_tpu_torch.tools import sweep_tiles
+    from jpeg_tpu_torch.utils.build import find_nvcc
+
+    counters = {"K1": k1.LAUNCHES, "K1a": k1.LAUNCHES_APPROX,
+                "K3": k3.LAUNCHES, "K4": k4.LAUNCHES, "K7": k7.LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    lo, hi = FUZZ_SEEDS
+    t0 = time.perf_counter()
+    lines = []
+    summary = fuzz.run(lo, hi, dev, out=lines.append)
+    for line in lines:
+        if '"problems": []' not in line:
+            print(f"fuzz case: {line}", flush=True)
+    print(f"fuzz summary ({card}): {json.dumps(summary)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(summary["problems"] == 0 and not summary["unreached"]
+          and summary["cases"] == 20 * (hi - lo),
+          f"fuzz [{lo},{hi}) x {summary['variants']} variants: "
+          f"{summary['problems']} problems; cases that launched each kernel "
+          f"{summary['launched']} of those taken {summary['taken']}; corpus "
+          f"claims {summary['claims']}")
+
+    sanitizer = os.path.join(os.path.dirname(find_nvcc()), "compute-sanitizer")
+    if not os.path.exists(sanitizer):
+        print(f"compute-sanitizer: not in the CUDA toolkit ({sanitizer} "
+              "does not exist): the fuzz's device routes ran without it",
+              flush=True)
+    else:
+        t0 = time.perf_counter()
+        cmd = [sanitizer, "--tool", "memcheck", "--error-exitcode", "1",
+               sys.executable, "-m", "jpeg_tpu_torch.tools.fuzz", str(lo),
+               str(hi), "--clean-size", SANITIZER_CLEAN, "--no-twins"]
+        proc = subprocess.run(
+            cmd, cwd=REPO, capture_output=True, text=True,
+            timeout=SANITIZER_TIMEOUT_S,
+            env={**os.environ, "PYTORCH_NO_CUDA_MEMORY_CACHING": "1"})
+        lines = (proc.stdout + proc.stderr).splitlines()
+        said = [ln for ln in lines if ln.startswith("========= ")
+                and "Host Frame" not in ln]
+        print("\n".join(f"memcheck: {ln}" for ln in said[:12]), flush=True)
+        if any(ln.strip() == REFUSED_BY_SANITIZER for ln in said):
+            # The sanitizer refuses this card (compute-sanitizer 2025.2.1
+            # and an NVIDIA H100 80GB HBM3): every CUDA call of the child
+            # then fails, and nothing is checked. Printed, with the tool's
+            # own line, never passed.
+            print(f"compute-sanitizer refuses this card ({card}): "
+                  f"{REFUSED_BY_SANITIZER!r}; memcheck did not run the "
+                  f"fuzz's device routes ({time.perf_counter() - t0:.1f} s)",
+                  flush=True)
+        else:
+            check(proc.returncode == 0
+                  and any("ERROR SUMMARY: 0 errors" in ln for ln in said),
+                  f"fuzz [{lo},{hi}) device routes under compute-sanitizer "
+                  f"memcheck: exit code {proc.returncode}, 0 errors "
+                  f"({time.perf_counter() - t0:.1f} s; last lines "
+                  f"{lines[-3:]})")
+
+    from jpeg_tpu_torch.bench import SIZE_4K
+
+    for tag, data in bench_device_spec.frames(SIZE_4K):
+        plan = parse_jpeg(data)
+        ref = native_decode_coefficients(plan, reuse_buffer=False)
+        for lanes, overlap in LADDER_CONFIGS:
+            r = bench_device_spec.run(plan, lanes, overlap, 3, dev)
+            exact = r["coeffs"] is not None and np.array_equal(
+                r["coeffs"].cpu().numpy(), ref)
+            check(exact, f"K7 ladder ({card}), {tag} {lanes}:{overlap}: "
+                  f"lanes {r['stats']['lanes']}, cap {r['stats']['cap']}, "
+                  f"gap_mcus {r['stats']['gap_mcus']}, whole call "
+                  f"{r['ms']} ms, K7 {r['k7_ms']} ms (median), == C++")
+
+    recs = ablate_kernel.ablate(ablate_kernel.stream_plans("rst16", dev),
+                                ("a", "b"), 10, dev)
+    for rec in recs:
+        print(f"K3 pass-1 ablation ({card}): {json.dumps(rec)}", flush=True)
+    full = recs[0]
+    check(full["variant"] == "a" and full["same_records"]
+          and full["lanes"] == 2025,
+          f"K3 pass-1 ablation: (a) full on {full['lanes']} lanes writes the "
+          f"shipping pass 1's records and flags, {full['ms']:.4f} ms; (b) no "
+          f"record store {recs[1]['ratio_to_full']:.3f} of it")
+
+    recs = sweep_tiles.sweep(SWEEP_SHAPES, (BATCH,), 5, dev)
+    for rec in recs:
+        print(f"K1 cell sweep ({card}): {json.dumps(rec)}", flush=True)
+    check(all(r["k1"]["identical"] and r["k1a"]["identical"] for r in recs),
+          f"K1 cell sweep at {BATCH} 4K frames: cells {list(SWEEP_SHAPES)} "
+          "give the shipping cell's pixels, K1 and K1a bit for bit")
+    torch.cuda.synchronize()
+    return {name: c.value for name, c in counters.items()}
 
 
 def check_k4_small(dev) -> int:
@@ -1647,6 +1821,7 @@ def speculative(dev, card: str) -> dict:
     from jpeg_tpu_torch.entropy import device_huffman as k3
     from jpeg_tpu_torch.entropy import device_spec as k7
     from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.tools import bench_device_spec
 
     t0 = time.perf_counter()
     data = encode_rgb(synthetic_image(3840, 2160, seed=0), quality=QUALITY,
@@ -1676,9 +1851,10 @@ def speculative(dev, card: str) -> dict:
               "== C++ native_decode_coefficients bit for bit"
               + (", gap recovery ran" if overlap == 2 else ""))
         # The gap-heavy call is host-bound at ~0.7 s: one timed rep there.
+        # The whole call is timed by the ladder tool's own rung.
         reps = 3 if overlap > 2 else 1
-        whole = host_ms(lambda: k7.decode_coefficients_device_spec(
-            plan, lanes, overlap, device=dev), reps)
+        rung = bench_device_spec.run(plan, lanes, overlap, reps, dev)
+        whole = rung["ms"]
         ls, ce, se, groups = k7._chunk_lanes(plan, lanes)
         cap = k7.spec_cap(groups, overlap)
         # Both table sets: the 2,048-lane tensors also feed the twin below.
@@ -1708,7 +1884,8 @@ def speculative(dev, card: str) -> dict:
               f"CUDA events, queued), control-array D2H {d2h:.3f}, host merge "
               f"{merge:.3f}, relocate {reloc:.3f}, whole call {whole:.3f} (host "
               f"clock); K7 {share(ms, bnd)} ({n_bytes_moved / 1e6:.1f} MB); "
-              f"longest lane {int(symbols.max())} symbols (mean "
+              f"(the ladder's rung: K7 alone {rung['k7_ms']:.4f}, not "
+              f"queued); longest lane {int(symbols.max())} symbols (mean "
               f"{float(symbols.float().mean()):.0f}), serial estimate, not a "
               f"bound, {serial:.4f} ms at K3's measured ~"
               f"{K3_CYCLES_PER_STEP_EST} cycles a step, {SM_CLOCK_HZ / 1e9:.2f} GHz",

@@ -47,8 +47,9 @@
 // rounded to bf16, the horizontal pass summed in fp32. Here both passes run
 // on the tensor cores as bf16 mma.sync with fp32 accumulation, two blocks
 // of one component (2i, 2i+1 of the cell: every component holds v * nbx
-// blocks with nbx in {8, 16, 32}, so pairs and groups of four never
-// straddle two components or two block rows):
+// blocks with nbx in {8, 16, 32} in the shipping cell, and at least 4 in
+// any cell K1a takes, so pairs and groups of four never straddle two
+// components or two block rows):
 //   1. The cell's int16 blocks go to shared memory as they are (cp.async,
 //      16 bytes a block row, 128 bytes a block; the row index is swizzled
 //      by the block's low bits so that a warp's copies of one row of 32
@@ -87,8 +88,24 @@
 
 namespace {
 
-constexpr int kTileW = 256;  // Y-resolution columns per cell
-constexpr int kThreads = 128;
+// The cell's shape: Y-resolution columns per cell and threads per cell.
+// The shipping build takes the defaults; tools/sweep_tiles.py builds
+// variants with -DJT_K1_TILE_W / -DJT_K1_THREADS (tiles of 64, 128 or 256
+// columns, which divide the host's 256-column plane padding; 64, 128 or
+// 256 threads, a power-of-two number of warps).
+#ifndef JT_K1_TILE_W
+#define JT_K1_TILE_W 256
+#endif
+#ifndef JT_K1_THREADS
+#define JT_K1_THREADS 128
+#endif
+constexpr int kTileW = JT_K1_TILE_W;
+constexpr int kThreads = JT_K1_THREADS;
+static_assert(kTileW == 64 || kTileW == 128 || kTileW == 256,
+              "a cell is 64, 128 or 256 columns wide");
+static_assert(kThreads == 64 || kThreads == 128 || kThreads == 256,
+              "a cell has 64, 128 or 256 threads");
+constexpr int kGroupsPerRow = kTileW / 16;  // colour stage: 16 pixels a thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxComp = 3;
 constexpr int kBlockBytes = 128;  // one int16 block staged in shared memory
@@ -441,9 +458,9 @@ fused_plane_kernel(const Geometry g,
   const Comp& c0 = g.c[0];
   const Comp& c1 = g.c[1];
   const Comp& c2 = g.c[2];
-  for (int grp = tid; grp < rows_y * (kTileW / 16); grp += kThreads) {
-    const int yy = grp >> 4;
-    const int x0 = (grp & 15) * 16;
+  for (int grp = tid; grp < rows_y * kGroupsPerRow; grp += kThreads) {
+    const int yy = grp / kGroupsPerRow;
+    const int x0 = (grp % kGroupsPerRow) * 16;
     uint8_t* o = out + b * 3 * plane_sz + (mcu_row * rows_y + yy) * w_pad +
                  static_cast<int64_t>(tile) * kTileW + x0;
     const int y_y = yy >> c0.fy_log2;
@@ -586,7 +603,11 @@ int jt_fused_plane_decode(const void* const* planes, const int64_t* rows,
     k.stride = stride[c];
     k.v = v[c];
     k.nbx = kTileW / fx / 8;
-    k.nbx_log2 = fx == 1 ? 5 : (fx == 2 ? 4 : 3);
+    // K1a's IDCT takes blocks four at a time along a block row, and its
+    // pixel-row swizzle spans 8 chunks (four blocks): a narrower cell
+    // component (a 64-column cell at 4x horizontal upsampling) is refused.
+    if (k.nbx < (approx ? 4 : 1)) return static_cast<int>(cudaErrorInvalidValue);
+    k.nbx_log2 = __builtin_ctz(static_cast<unsigned>(k.nbx));
     k.fx_log2 = fx == 1 ? 0 : (fx == 2 ? 1 : 2);
     k.fy_log2 = fy == 1 ? 0 : (fy == 2 ? 1 : 2);
     k.first = blocks;

@@ -11,10 +11,11 @@
 //   into byte-aligned chunks on the host; lane l starts at bit_start[l], a
 //   guess that self-synchronises with the true symbol stream within a few
 //   MCUs;
-// - bit stream: the whole scan from the lane's start, across segment and
-//   chunk ends, then 0xAA fill bytes forever (the TPU loop reads the
-//   0xAA-padded scan the same way, so lanes that run past a restart
-//   boundary record the same positions);
+// - bit stream: the lane's restart segment from the lane's start, across
+//   chunk ends, then 0xAA fill bytes forever, as the C++ decoder and K3
+//   read a segment (the TPU loop reads on into the next segment's bytes;
+//   on a damaged segment whose last MCU runs past its end, that gave other
+//   coefficients than the C++ decoder, F8 in ROADMAP.md);
 // - per MCU m, before decoding it: mcu_bits[m] = the cursor. The lane
 //   counts MCU starts at or after its chunk end (past_end) and starts MCU m
 //   only while cursor < seg_end_bit and past_end <= overlap;
@@ -37,8 +38,8 @@
 // Design: one thread per lane walks its MCUs serially (the TPU loop's
 // lockstep is what a CUDA thread does alone), table rows in shared memory
 // as K3's pass 2 holds them, the byte reader shared with K3. Bound: the
-// serial chain of the longest lane (about 240 cycles a symbol step, K3's
-// pass 1 measured), not bytes: 2,048 lanes of a 4K frame read ~1.5 MB and
+// serial chain of the longest lane (about 360 cycles a step on K3's pass
+// 1, tools/ablate_kernel.py, PERF.md), not bytes: 2,048 lanes of a 4K frame read ~1.5 MB and
 // write ~148 MB of rows, 0.05 ms at 3.35 TB/s. Warps get as few lanes as
 // keep about two warps per scheduler (huffman::lanes_per_warp_for), since a
 // warp's lanes wait for each other's loads.
@@ -80,7 +81,7 @@ spec_lanes(const uint8_t* __restrict__ data, int n_bytes,
   for (int c = 0; c < 4; ++c) pred[c * kSpecThreads] = 0;
 
   ByteReader br;
-  br.start(data, n_bytes, bit_start[lane]);
+  br.start(data, seg_end_bit[lane] >> 3, bit_start[lane]);
   const int chunk_end = chunk_end_bit[lane], seg_end = seg_end_bit[lane];
   int32_t* lane_out = out + static_cast<int64_t>(lane) * cap * bpm * 64;
   int32_t* bits = mcu_bits + static_cast<int64_t>(lane) * (cap + 1);

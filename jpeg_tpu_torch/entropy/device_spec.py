@@ -139,7 +139,9 @@ def spec_lanes_plain(t: dict, n_bytes: int, cap: int, overlap: int,
     data = t["data"]
     n_lanes = t["bit_start"].shape[0]
     start = torch.zeros(n_lanes, dtype=i64, device=dev)
-    length = torch.full((n_lanes,), n_bytes, dtype=i64, device=dev)
+    # A lane reads its segment's bytes, then 0xAA fill (F8): as the C++
+    # decoder and K3 read a restart segment.
+    length = t["seg_end_bit"].to(i64) >> 3
     lut, hv = t["lut11"].to(i64), t["huffval"].to(i64)
     canon = t["canon"].cpu().tolist()
     slots = t["slots"].cpu().tolist()

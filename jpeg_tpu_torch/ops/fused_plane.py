@@ -42,6 +42,14 @@ from jpeg_tpu_torch.utils.build import LaunchCounter, load_cuda_kernel
 TILE_W = 256
 BAND_ROWS = 128
 
+# K1's cell (csrc/fused_plane.cu: kTileW, kThreads): Y-resolution columns
+# and threads per thread block. The shipping build is CELL; a variant build
+# (tools/sweep_tiles.py) takes a tile from CELL_TILES, which divide TILE_W,
+# and a thread count from CELL_THREADS.
+CELL = (256, 128)
+CELL_TILES = (64, 128, 256)
+CELL_THREADS = (64, 128, 256)
+
 LAUNCHES = LaunchCounter()         # K1
 LAUNCHES_APPROX = LaunchCounter()  # K1a
 IDCT_MODES = ("exact", "approx")
@@ -167,20 +175,45 @@ def _configure(lib) -> None:
     lib.jt_fused_plane_attributes.argtypes = [i32, ctypes.POINTER(i32)]
 
 
-def load_kernel():
+def check_cell(cell) -> tuple[int, int]:
+    """``cell`` as (tile columns, threads), or ``ValueError`` for a shape the
+    plane layout cannot take: a tile outside :data:`CELL_TILES` (the host
+    pads planes to TILE_W, which those divide) or a thread count outside
+    :data:`CELL_THREADS` (a power-of-two number of warps)."""
+    tile_w, threads = (int(x) for x in cell)
+    if tile_w not in CELL_TILES or threads not in CELL_THREADS:
+        raise ValueError(
+            f"K1 cell {tile_w}x{threads}: tiles of {CELL_TILES} columns and "
+            f"{CELL_THREADS} threads fit the plane layout")
+    return tile_w, threads
+
+
+def load_kernel(cell=None):
     """Build (at first use) and load the K1 library. ``--fmad=false`` keeps
     nvcc from contracting the colour stage's multiply-adds; the IDCT comes
-    from ``csrc/idct8x8.cuh``, shared with K5 and K6."""
-    return load_cuda_kernel("fused_plane", ("--fmad=false",), _configure,
-                            headers=("idct8x8.cuh",))
+    from ``csrc/idct8x8.cuh``, shared with K5 and K6. ``cell`` (tile
+    columns, threads) other than :data:`CELL` builds a variant library with
+    that cell (:func:`check_cell`); the shipping call is unchanged."""
+    if cell is None or tuple(cell) == CELL:
+        return load_cuda_kernel("fused_plane", ("--fmad=false",), _configure,
+                                headers=("idct8x8.cuh",))
+    tile_w, threads = check_cell(cell)
+    return load_cuda_kernel(
+        "fused_plane", ("--fmad=false", f"-DJT_K1_TILE_W={tile_w}",
+                        f"-DJT_K1_THREADS={threads}"), _configure,
+        headers=("idct8x8.cuh",), variant=f"t{tile_w}_n{threads}")
 
 
 def fused_plane_decode_cuda(planes, qtabs, geom, rounding: str = "truncate",
-                            idct_mode: str = "exact") -> torch.Tensor:
+                            idct_mode: str = "exact",
+                            cell=None) -> torch.Tensor:
     """Launch K1 (or K1a for ``idct_mode="approx"``) on the current stream.
     Same contract as :func:`fused_plane_decode_plain`; every tensor must be
     on one CUDA device and contiguous, and each plane 16-byte aligned (the
-    kernel loads a block row, eight int16, at a time)."""
+    kernel loads a block row, eight int16, at a time). ``cell`` selects a
+    variant build of another cell shape (:func:`load_kernel`)."""
+    if cell is not None:
+        check_cell(cell)
     batch = _check_inputs(planes, qtabs, geom)
     mode = _rounding_mode(rounding)
     basis = _basis_np(idct_mode)
@@ -190,7 +223,7 @@ def fused_plane_decode_cuda(planes, qtabs, geom, rounding: str = "truncate",
             raise ValueError("K1 inputs must be contiguous and on one device")
     if any(p.data_ptr() % 16 for p in planes):
         raise ValueError("K1 planes must start on a 16-byte boundary")
-    lib = load_kernel()
+    lib = load_kernel(cell)
     shapes = padded_plane_shapes(geom)
     n_comp = len(shapes)
     h_pad, w_pad = padded_size(geom)

@@ -161,6 +161,9 @@ class BatchedCorpusDecoder:
     decoded by K3, ``fallback_frames`` claimed by the device thread but sent
     to the host route, ``entropy_launches`` (K3) and ``pixel_launches`` (K1
     or K1a, one a data shard under a mesh) made through this decoder.
+    ``routes`` holds, per item of the last :meth:`decode_all`, the route its
+    entropy took: ``"host"``, ``"device"`` (K3) or ``"fallback"`` (claimed
+    by the device thread, then decoded on the host).
     """
 
     def __init__(self, workers: int | None = None, rounding: str = "truncate",
@@ -178,6 +181,7 @@ class BatchedCorpusDecoder:
         self.fallback_frames = 0
         self.entropy_launches = 0
         self.pixel_launches = 0
+        self.routes: list[str] = []
         # Persistent pools: fresh threads per call would bring fresh native
         # scratch buffers and allocator arenas each time.
         self._pool = None
@@ -230,6 +234,7 @@ class BatchedCorpusDecoder:
 
     def _hybrid_parse(self, items):
         parsed: list = [None] * len(items)
+        routes = self.routes = ["host"] * len(items)
         work = deque(range(len(items)))
         lk = threading.Lock()
         k = self.device_batch
@@ -254,6 +259,7 @@ class BatchedCorpusDecoder:
             with lk:
                 self.fallback_frames += len(idxs)
             for i in idxs:
+                routes[i] = "fallback"
                 parsed[i] = self._entropy_one(items[i])
 
         def finalize(pend):
@@ -270,6 +276,7 @@ class BatchedCorpusDecoder:
                 planes = [x.cpu().numpy()
                           for x in coefficient_planes_from_blocks(c, geom)]
                 parsed[i] = (_name(items[i]), p, geom, planes, None)
+                routes[i] = "device"
                 with lk:
                     self.device_frames += 1
 
@@ -334,6 +341,7 @@ class BatchedCorpusDecoder:
         else:
             pool, _ = self._pools()
             parsed = list(pool.map(self._entropy_one, items))
+            self.routes = ["host"] * len(items)
 
         results: list = [None] * len(parsed)
         buckets: dict = {}

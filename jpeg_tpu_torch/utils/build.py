@@ -140,17 +140,25 @@ def load_library(name: str, compiler: list[str], sources: list[str],
 
 
 def load_cuda_kernel(name: str, extra_flags: tuple[str, ...],
-                     configure, headers: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` with nvcc for sm_90a and load it.
-    ``headers`` names the files of ``csrc/`` it includes: they are found
-    through ``-I csrc`` and hashed with the source. Every launch calls
-    this: once loaded, the library is returned before anything else
-    (finding nvcc re-imports ``torch.utils.cpp_extension``, which took
-    0.6 ms a call on the H100's host)."""
-    lib = _loaded.get(name)
+                     configure, headers: tuple[str, ...] = (),
+                     variant: str = "", source: str | None = None
+                     ) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (or ``source``, a ``.cu`` elsewhere in the
+    package) with nvcc for sm_90a and load it. ``headers`` names the files
+    of ``csrc/`` it includes: they are found through ``-I csrc`` and hashed
+    with the source. ``variant`` names a build of the same source under
+    other ``extra_flags`` (``-D`` overrides): the library's name and cache
+    key become ``<name>.<variant>``, and its hash covers those flags, so
+    each variant is a library of its own and a plain call (no variant)
+    keeps its command line and its library. Every launch calls this: once
+    loaded, the library is returned before anything else (finding nvcc
+    re-imports ``torch.utils.cpp_extension``, which took 0.6 ms a call on
+    the H100's host)."""
+    key = f"{name}.{variant}" if variant else name
+    lib = _loaded.get(key)
     if lib is not None:
         return lib
     return load_library(
-        name, [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *extra_flags],
-        [os.path.join(CSRC_DIR, f"{name}.cu")], configure,
+        key, [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *extra_flags],
+        [source or os.path.join(CSRC_DIR, f"{name}.cu")], configure,
         tuple(os.path.join(CSRC_DIR, h) for h in headers))

@@ -5,6 +5,8 @@ copy (same report keys); the ``corpus`` command of the CLI writes its
 ``stages`` report with it. :func:`device_trace` runs ``torch.profiler`` with
 CPU and CUDA activities where the JAX package runs ``jax.profiler.trace``,
 and writes a Chrome trace (``*.pt.trace.json``) into ``logdir``.
+:func:`queued_ms` times a kernel launch on the card with CUDA events (the
+kernel-study tools of :mod:`jpeg_tpu_torch.tools`).
 """
 
 from __future__ import annotations
@@ -83,3 +85,23 @@ def device_trace(logdir: str | None):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(logdir)):
         yield
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Median milliseconds of one ``fn()`` over ``reps`` calls queued behind
+    ~20 ms of device sleep (so the host's launch time stays out), CUDA
+    events around each call. One warm call first."""
+    import numpy as np
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(40_000_000)
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in events]))

@@ -726,6 +726,27 @@ def test_k7_kernel_equals_plain_and_cpp(cuda, name, lanes, overlap):
                                   native_decode_coefficients(plan))
 
 
+@pytest.mark.parametrize("seed", [5, 12])
+def test_k7_reads_fill_past_a_damaged_segment_end(cuda, seed):
+    """F8 on the card: the fuzz's damaged restart stream whose last MCU of a
+    segment decodes past the segment's end. K7 reads 0xAA fill there, as
+    its twin and the C++ decoder do, so the merge equals the C++ decoder."""
+    from jpeg_tpu_torch.io.corpus import synthetic_image
+    from jpeg_tpu_torch.tools.fuzz import corrupt
+
+    data = corrupt("rst", encode_rgb(synthetic_image(144, 96, seed=1),
+                                     quality=80, restart_interval_mcus=3),
+                   seed)
+    plan = parse_jpeg(data)
+    _k7_against_plain(plan, 64, 24, cuda)
+    coeffs, stats = k7.decode_coefficients_device_spec(plan, 64, 24,
+                                                       device=cuda)
+    assert stats["failed"] == 0
+    np.testing.assert_array_equal(
+        coeffs.cpu().numpy(),
+        native_decode_coefficients(plan, reuse_buffer=False))
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_k7_kernel_equals_plain_on_corrupt_streams(cuda, seed):
     """Flipped bytes: lanes die at invalid prefixes, K7 as its twin does."""

@@ -8,6 +8,9 @@ every index the host merge reads; corrupt streams; ``luts`` refused before
 anything is launched. K7 against its twin on the card is in
 ``tests/test_torch_cuda.py``."""
 
+import copy
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,6 +158,26 @@ PHASE_A = {
 }
 
 
+FILL = 4096  # bytes of 0xAA after each segment: more than an MCU reads
+
+
+def _fill_after_segments(plan):
+    """``plan`` with FILL bytes of 0xAA after each restart segment. A K7 lane
+    reads 0xAA past its segment's end, the JAX loop the next segment's
+    bytes (F8); on this scan both read the same bytes."""
+    q = copy.copy(plan)
+    chunks, segs, at = [], [], 0
+    for s in plan.segments:
+        n = s.byte_end - s.byte_start
+        chunks += [np.asarray(plan.scan_data[s.byte_start : s.byte_end]),
+                   np.full(FILL, 0xAA, np.uint8)]
+        segs.append(dataclasses.replace(s, byte_start=at, byte_end=at + n))
+        at += n + FILL
+    q.scan_data = np.concatenate(chunks).astype(np.uint8)
+    q.segments = segs
+    return q
+
+
 @pytest.mark.parametrize("pair", [False, True])
 @pytest.mark.parametrize("case", PHASE_A)
 def test_phase_a_matches_jax_kernel(case, pair):
@@ -162,10 +185,14 @@ def test_phase_a_matches_jax_kernel(case, pair):
     the same lanes (the JAX kernel's single-symbol form, and its pair form,
     which K7 also answers): ``n_dec`` equal; per lane ``mcu_bits`` and
     ``dc_cum`` at 0..n_dec (what the merge reads; past it the JAX loop
-    keeps writing a dead lane's last cursor) and every ``out`` row equal."""
+    keeps writing a dead lane's last cursor) and every ``out`` row equal.
+    Each segment is followed by 0xAA fill in the scan both read
+    (:func:`_fill_after_segments`), so a lane that runs past its segment's
+    end reads the same bytes in both."""
     make, lanes, overlap = PHASE_A[case]
     data = make()
-    r, p = ref_parse(data), parse_jpeg(data)
+    r = _fill_after_segments(ref_parse(data))
+    p = _fill_after_segments(parse_jpeg(data))
     ls, ce, se, groups = spec._chunk_lanes(p, lanes)
     ref_ls, ref_ce, ref_se, ref_groups = ref._chunk_lanes(r, lanes)
     for a, b in ((ls, ref_ls), (ce, ref_ce), (se, ref_se)):
@@ -319,3 +346,31 @@ def test_sync_is_looked_for_only_up_to_the_segment_end():
         & set(mcu_bits[lane + 1, : n_dec[lane + 1] + 1])
         for lane in range(first, first + _k - 1)]
     assert any(pos > s.byte_end * 8 for common in shared for pos in common)
+
+
+@pytest.mark.parametrize("seed", [5, 12])
+def test_a_lane_reads_fill_past_its_segment_end(seed):
+    """F8: a damaged restart segment whose last MCU decodes past the
+    segment's end (the fuzz's ``rst`` variant, seeds 5 and 12; K3 flags
+    that lane). The C++ decoder and the oracle read 0xAA fill there, and
+    so does the port's phase A, so the speculative decode equals them; the
+    JAX loop reads on into the next segment's bytes and its decode
+    differs, with the same ``stats``."""
+    from jpeg_tpu_torch.io.corpus import synthetic_image
+    from jpeg_tpu_torch.models.encoder import encode_rgb as port_encode_rgb
+    from jpeg_tpu_torch.runtime import native_decode_coefficients
+    from jpeg_tpu_torch.tools.fuzz import corrupt
+
+    data = corrupt("rst", port_encode_rgb(synthetic_image(144, 96, seed=1),
+                                          quality=80, restart_interval_mcus=3),
+                   seed)
+    plan = parse_jpeg(data)
+    want = native_decode_coefficients(plan, reuse_buffer=False)
+    np.testing.assert_array_equal(want, decode_coefficients(ref_parse(data)))
+    got, stats = spec.decode_coefficients_device_spec(plan, 64, 24,
+                                                      device="cpu")
+    ref_got, ref_stats = ref.decode_coefficients_device_spec(
+        ref_parse(data), target_lanes=64, overlap_mcus=24)
+    assert stats == ref_stats and stats["failed"] == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(np.asarray(ref_got), want)
