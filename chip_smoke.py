@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the C++ entropy runtime and entropy encoder (the port's own copies
-of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``) and
-the six CUDA libraries (K1-K7, K1a with K1), the K3 pass-1 ablation's
-library and two K1 cell variants from this checkout (all at once), checks
+Builds the C++ entropy runtime (profile-guided) and entropy encoder (the
+port's own copies of the JAX package's C++ sources,
+``jpeg_tpu_torch/runtime/native/``), the six CUDA libraries (K1-K7, K1a
+with K1), the K3 pass-1 ablation's library, two K1 cell variants and the
+host tools' programs (a plain and two AddressSanitizer builds of the C++
+sources, the four microbenchmarks, the libjpeg harness where
+``jpeglib.h`` is found) from this checkout (all at once), checks
 each kernel against its plain PyTorch version at the shapes its path gives
 it (K1, its approx tier K1a and K2 on every sampling they
 take, K3 and K4 on corrupt streams and eight 4K frames, K7 on a 4K frame
@@ -134,17 +137,36 @@ frames, no problem and every kernel reached by a case; the same seeds'
 device routes in a child under ``compute-sanitizer --tool memcheck`` (0
 errors), where the toolkit has it (where it refuses the card, as
 compute-sanitizer 2025.2.1 refuses an NVIDIA H100 80GB HBM3, its refusal
-is printed); two rungs of K7's ladder
+is printed); the two-sentinel check of K3, K4 and K7 on the damaged
+cases of seeds 0-2 (``jpeg_tpu_torch/tools/sentinel.py``: their
+``torch.empty`` outputs pre-filled with two different bytes, every entry
+a consumer reads equal); two rungs of K7's ladder
 (``bench_device_spec.run``, which also times the ``speculative`` phase's
 whole calls) on both of its 4K frames; K3's pass-1 ablation, variants (a)
 and (b), on the 2,025-lane stream, (a) equal to the shipping pass 1's
 records; and two K1 cells of the sweep at 8 4K frames, K1 and K1a bit for
 bit with the shipping cell.
 
+Then the host C++ runtime's build and tuning (``host_runtime_phase``; host
+numbers, printed with the host's CPU model and the card): the loaded
+runtime is the profile-guided build (``runtime.pgo_status()``, with the
+seconds of its instrumented build, training and rebuild); its A/B against
+a plain build (``tools/ab_host_entropy.py``, five interleaved rounds on the
+4K restart-per-row fixture, medians, [min, max] and a verdict, not held);
+the chunk tuner trialled to its pick on a 4K frame without restarts, each
+candidate's planes bit for bit with the sequential decode; ``abench`` in
+all five modes; the four C++ microbenchmarks on the dumped 4K streams;
+libjpeg's coefficients of the port's 4K SOF9 frame against the port's
+where ``jpeglib.h`` is found (its absence printed); and the
+AddressSanitizer sweep of the runtime and encoder over fuzz seeds 0-2,
+failing on any report.
+
 Then the port's bench (``bench_phase``): ``jpeg_tpu_torch.bench.main``
 with 32 headline frames and one repeat, its JSON line printed among these
 lines; its keys, rates, fallback count, card and kernel launches (K1, K1a,
-K2, K3, K5) are checked.
+K2, K3, K5) are checked, and ``pgo`` is on and ``spec_chunks`` the pick
+of a chunk tuner that starts empty for the bench (on a file of its own),
+the fastest candidate by the bench's own trials.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
@@ -255,12 +277,13 @@ K1A_TWIN_MIN_PSNR = 70.0
 
 # The tools phase: fuzz seeds [0, 3) over every route (and again under
 # compute-sanitizer's memcheck, clean corpus frames at 256x128, no twins:
-# those seeds were held to them just before), two rungs of K7's ladder,
-# the pass-1 ablation's (a) and (b) on the 2,025-lane stream, two K1 cells
-# at 8 frames. The sanitizer's own line when it refuses the card (as
-# compute-sanitizer 2025.2.1 refuses an NVIDIA H100 80GB HBM3): printed,
-# not passed.
+# those seeds were held to them just before), the two-sentinel check on
+# seeds [0, 3), two rungs of K7's ladder, the pass-1 ablation's (a) and (b)
+# on the 2,025-lane stream, two K1 cells at 8 frames. The sanitizer's own
+# line when it refuses the card (as compute-sanitizer 2025.2.1 refuses an
+# NVIDIA H100 80GB HBM3): printed, not passed.
 FUZZ_SEEDS = (0, 3)
+SENTINEL_SEEDS = (0, 3)
 SANITIZER_CLEAN = "256x128"
 SANITIZER_TIMEOUT_S = 420
 LADDER_CONFIGS = ((512, 8), (2048, 4))
@@ -268,6 +291,13 @@ REFUSED_BY_SANITIZER = ("========= Error: Device not supported. Please refer "
                         "to the \"Supported Devices\" section of the "
                         "sanitizer documentation")
 SWEEP_SHAPES = ((128, 128), (256, 256))
+# The host_runtime phase: interleaved rounds of the profile-guided build's
+# A/B, the microbenchmarks' repetitions and QM decisions, the ASan sweep's
+# fuzz seeds (inclusive).
+HOST_AB_ROUNDS = 5
+MICRO_REPS = 3
+MICRO_DECISIONS = 4_000_000
+ASAN_SEEDS = (0, 2)
 
 
 class CheckFailed(Exception):
@@ -487,7 +517,13 @@ def run() -> list[dict]:
     from jpeg_tpu_torch.ops import fused_plane as k1
     from jpeg_tpu_torch.ops import idct_only as k56
     from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
-    from jpeg_tpu_torch.tools import ablate_kernel
+    from jpeg_tpu_torch.tools import (
+        ab_host_entropy,
+        ablate_kernel,
+        arith_ref,
+        microbench,
+    )
+    from jpeg_tpu_torch.utils.build import build_library
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -518,7 +554,17 @@ def run() -> list[dict]:
                ablate_kernel.load_kernel),
               *((f"K1 cell {t}x{n} variant (nvcc sm_90a)",
                  lambda cell=(t, n): k1.load_kernel(cell))
-                for t, n in SWEEP_SHAPES))
+                for t, n in SWEEP_SHAPES),
+              ("C++ runtime, plain A/B arm (g++)",
+               lambda: ab_host_entropy.build_variant("plain", "")),
+              *((f"C++ {name} (g++, AddressSanitizer)",
+                 lambda b=(name, cmd, srcs, hdrs): build_library(*b))
+                for name, cmd, srcs, hdrs in runtime.ASAN_BUILDS),
+              *((f"C++ microbenchmark {name} (g++)",
+                 lambda name=name: microbench.build(name))
+                for name in microbench.PROGRAMS),
+              *((("libjpeg harness jpeg_arith_ref.c (gcc -ljpeg)",
+                  arith_ref.build),) if arith_ref.find_header() else ()))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         futs = [(name, pool.submit(timed, load)) for name, load in builds]
@@ -825,6 +871,14 @@ def run() -> list[dict]:
     t0 = time.perf_counter()
     tools = tools_phase(dev, card)
     print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 13e. The host C++ runtime's build and tuning, and the host tools: the
+    #      profile-guided build and its A/B, the chunk tuner's ladder, the
+    #      quick A/B modes, the C++ microbenchmarks, libjpeg's QM-coder
+    #      ground truth and the AddressSanitizer sweep.
+    t0 = time.perf_counter()
+    host_runtime_phase(card)
+    print(f"host_runtime phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 14. The port's bench (jpeg_tpu_torch/bench.py) in a quick mode.
     t0 = time.perf_counter()
@@ -1250,6 +1304,10 @@ def tools_phase(dev, card: str) -> dict:
       against the C++ decoder, and the hybrid corpus decoder with each case
       in a claim of 4K frames; no problem, and every kernel route reached
       by a case (K3 taking the case itself on the corpus route);
+    - the two-sentinel check of K3, K4 and K7 over the damaged cases of
+      SENTINEL_SEEDS (``sentinel.check``): every entry a consumer reads
+      equal when their ``torch.empty`` outputs start as two different
+      bytes;
     - the same seeds' device routes in a child process under
       ``compute-sanitizer --tool memcheck --error-exitcode 1``, found
       beside nvcc (a missing tool is printed, not hidden);
@@ -1270,7 +1328,7 @@ def tools_phase(dev, card: str) -> dict:
     from jpeg_tpu_torch.ops import fused_plane as k1
     from jpeg_tpu_torch.runtime import native_decode_coefficients
     from jpeg_tpu_torch.tools import ablate_kernel, bench_device_spec, fuzz
-    from jpeg_tpu_torch.tools import sweep_tiles
+    from jpeg_tpu_torch.tools import sentinel, sweep_tiles
     from jpeg_tpu_torch.utils.build import find_nvcc
 
     counters = {"K1": k1.LAUNCHES, "K1a": k1.LAUNCHES_APPROX,
@@ -1292,6 +1350,20 @@ def tools_phase(dev, card: str) -> dict:
           f"{summary['problems']} problems; cases that launched each kernel "
           f"{summary['launched']} of those taken {summary['taken']}; corpus "
           f"claims {summary['claims']}")
+
+    # The check compute-sanitizer cannot make here: K3, K4 and K7 over the
+    # same damaged cases, their torch.empty outputs pre-filled with two
+    # different bytes, every entry a consumer reads equal.
+    t0 = time.perf_counter()
+    sent = sentinel.check(dev, range(*SENTINEL_SEEDS))
+    print(f"two-sentinel check ({card}): {json.dumps(sent)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(all(r["cases"] > 0 and not r["read_differ"]
+              and r["launches"] >= 2 * r["cases"] for r in sent.values()),
+          f"two sentinels, fuzz {list(range(*SENTINEL_SEEDS))}: every "
+          f"entry read equal for "
+          + ", ".join(f"{k} ({r['cases']} damaged cases, {r['launches']} "
+                      f"launches)" for k, r in sent.items()))
 
     sanitizer = os.path.join(os.path.dirname(find_nvcc()), "compute-sanitizer")
     if not os.path.exists(sanitizer):
@@ -2395,13 +2467,146 @@ def check_k2(frames, dev) -> dict:
             "plain_ms_1_frame": plain1, "bound_ms_1_frame": bnd1["bound_ms"]}
 
 
+def host_cpu() -> str:
+    """The host's CPU model and core count: ``lscpu``'s model name and,
+    where it says none or "unknown", ``/proc/cpuinfo``'s."""
+    proc = subprocess.run(["lscpu"], capture_output=True, text=True,
+                          timeout=60)
+    said = [ln.split(":", 1)[1].strip() for ln in proc.stdout.splitlines()
+            if ln.startswith("Model name")]
+    model = f"lscpu {said[0] if said else 'no model name'}"
+    if not said or said[0].lower() == "unknown":
+        try:
+            with open("/proc/cpuinfo") as f:
+                names = {ln.split(":", 1)[1].strip() for ln in f
+                         if ln.startswith("model name")}
+            model += f", /proc/cpuinfo {' / '.join(sorted(names)) or 'none'}"
+        except OSError as e:
+            model += f", /proc/cpuinfo unreadable ({e})"
+    return f"{model}, {os.cpu_count()} cores"
+
+
+def host_runtime_phase(card: str) -> dict:
+    """The host C++ runtime's build and tuning and the port's host tools,
+    on the card's host (host numbers, printed with the CPU model):
+
+    - the loaded runtime is the profile-guided build (``pgo_status()`` on),
+      with the seconds of its instrumented build, training and rebuild;
+    - ``ab_host_entropy``: the shipping (profile-guided) build against a
+      plain one, HOST_AB_ROUNDS interleaved rounds on the 4K restart-per-row
+      fixture, medians and [min, max], a verdict printed, not held;
+    - the chunk tuner (``runtime.SpecTuner``, its own file) trialled to its
+      pick on the 4K frame without restarts, each candidate's best time
+      printed, and the planes at every candidate bit for bit with the
+      segment-sequential decode (``speculative=False``);
+    - ``abench`` in all five modes, once;
+    - the four C++ microbenchmarks on the dumped 4K streams (MICRO_REPS);
+    - libjpeg's coefficients of the port's 4K SOF9 frame equal to the
+      port's, where ``jpeglib.h`` is found (its absence printed);
+    - the AddressSanitizer sweep over fuzz seeds ASAN_SEEDS: no report.
+
+    Returns the A/B's medians and the tuner's snapshot."""
+    import tempfile
+
+    from jpeg_tpu_torch import bench, runtime
+    from jpeg_tpu_torch.io.container import parse_jpeg
+    from jpeg_tpu_torch.tools import (
+        ab_host_entropy,
+        abench,
+        arith_ref,
+        asan_sweep,
+        microbench,
+    )
+
+    host = host_cpu()
+    print(f"host_runtime: host {host}, card {card}", flush=True)
+    runtime.load()
+    info = runtime.build_info() or {}
+    check(runtime.pgo_status() == "on",
+          f"the loaded C++ runtime is the profile-guided build (pgo_status "
+          f"{runtime.pgo_status()!r}; seconds of its instrumented build "
+          f"{info.get('instrumented_s')}, training {info.get('train_s')}, "
+          f"rebuild {info.get('final_s')})")
+
+    t0 = time.perf_counter()
+    plan = parse_jpeg(read(FRAMES_4K[0]))
+    res = ab_host_entropy.ab([("plain", "")], plan, HOST_AB_ROUNDS,
+                             out=lambda m: print(f"pgo A/B ({host}): {m}",
+                                                 flush=True))
+    for kind in ("single", "corpus"):
+        print(f"pgo A/B ({host}; {card}): "
+              f"{ab_host_entropy.verdict(res, 'shipping', 'plain', kind)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    img = synthetic_image(3840, 2160, 0)
+    nr = parse_jpeg(bench.norestart_stream(img))
+    want = [p.copy() for p in runtime.native_decode_planes(
+        nr, speculative=False, reuse_buffer=False)]
+    n_threads = os.cpu_count() or 1
+    with tempfile.TemporaryDirectory() as tmp:
+        tuner = runtime.SpecTuner(os.path.join(tmp, "spec_tuner.json"),
+                                  lambda: "smoke")
+        key = str(tuner.key(nr))
+        calls = 0
+        while tuner.snapshot().get(key, {}).get("chosen") is None:
+            k = tuner.chunks(nr, n_threads)
+            t1 = time.perf_counter()
+            runtime.native_decode_planes(nr, n_chunks=k, speculative=True)
+            tuner.feedback(nr, k, time.perf_counter() - t1)
+            calls += 1
+        snap = tuner.snapshot()[key]
+    print(f"chunk tuner ({host}): 4K without restarts, {n_threads} threads, "
+          f"candidates {list(snap['best_ms'])}, best ms {snap['best_ms']}, "
+          f"pick {snap['chosen']} after {calls} calls", flush=True)
+    for k in map(int, snap["best_ms"]):
+        got = runtime.native_decode_planes(nr, n_chunks=k, speculative=True)
+        check(all(np.array_equal(g, w) for g, w in zip(got, want)),
+              f"speculative planes at {k} chunks == the sequential decode's")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cache:
+        abench.run(abench.MODES, (3840, 2160), cache,
+                   out=lambda m: print(f"abench ({host}): {m}", flush=True))
+        print(f"abench: five modes ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        t0 = time.perf_counter()
+        microbench.microbench((3840, 2160), MICRO_REPS, MICRO_DECISIONS,
+                              out=lambda m: print(f"microbench ({host}): {m}",
+                                                  flush=True))
+        print(f"microbench: four programs ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if arith_ref.find_header() is None:
+            print(f"jpeg_arith_ref: {arith_ref.HEADER} not found on this "
+                  "host: libjpeg's QM-coder ground truth not run", flush=True)
+        else:
+            n, equal = arith_ref.check_port_stream(
+                abench.Streams((3840, 2160), cache).get("arith"))
+            check(equal, f"libjpeg's coefficients of the port's 4K SOF9 "
+                  f"frame == the port's ({n} blocks)")
+
+    t0 = time.perf_counter()
+    summary = asan_sweep.sweep(*ASAN_SEEDS, out=lambda m: print(m, flush=True))
+    check(summary["ok"], f"ASan sweep, fuzz seeds {ASAN_SEEDS[0]}-"
+          f"{ASAN_SEEDS[1]}: {json.dumps(summary)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"ab": {a: {k: r[f"{k}_median"] for k in ("single", "corpus")}
+                   for a, r in res.items()}, "tuner": snap}
+
+
 def bench_phase(card: str) -> dict:
     """``jpeg_tpu_torch.bench.main`` in a quick mode (BENCH_FRAMES headline
     frames, one repeat), its result line printed among these: its keys are
     ``bench.KEYS``, every rate finite and > 0, the headline corpus decoded
     with no fallback and some frames by K3, the card named as here, and
-    K1, K1a, K2, K3 and K5 launched. Returns the launches by kernel."""
-    from jpeg_tpu_torch import bench
+    K1, K1a, K2, K3 and K5 launched. The runtime's chunk tuner is swapped
+    for an empty one on a file of its own for the run: earlier phases fed
+    the process's tuner on the same frame class and persisted its pick to
+    ``build/spec_tuner.json``, so the bench's ``spec_chunks`` would be
+    theirs. ``spec_chunks`` must be the fastest candidate by the bench's
+    own trials. Returns the launches by kernel."""
+    import tempfile
+
+    from jpeg_tpu_torch import bench, runtime
     from jpeg_tpu_torch.entropy import device_huffman as k3
     from jpeg_tpu_torch.ops import fused_encode as k2
     from jpeg_tpu_torch.ops import fused_plane as k1
@@ -2411,7 +2616,15 @@ def bench_phase(card: str) -> dict:
                 "K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "K5": k56.LAUNCHES}
     for c in counters.values():
         c.reset()
-    result = bench.main(["--frames", str(BENCH_FRAMES), "--repeats", "1"])
+    saved = runtime._TUNER
+    with tempfile.TemporaryDirectory() as tmp:
+        runtime._TUNER = runtime.SpecTuner(
+            os.path.join(tmp, "spec_tuner.json"), runtime._library_file)
+        try:
+            result = bench.main(["--frames", str(BENCH_FRAMES),
+                                 "--repeats", "1"])
+        finally:
+            runtime._TUNER = saved
     launches = {name: c.value for name, c in counters.items()}
     detail = result["detail"]
     check(set(result) == {"metric", "value", "unit", "detail"}
@@ -2431,6 +2644,16 @@ def bench_phase(card: str) -> dict:
           f"by K3, {detail['e2e_corpus_fallback_frames']} fallbacks; "
           f"e2e_hybrid {detail['e2e_hybrid_fps']:.2f} frames/s, "
           f"{detail['e2e_hybrid_device_frames']} by K3")
+    tuned = detail["spec_tuner"]
+    picks = [st for st in tuned.values() if st["chosen"] is not None]
+    check(detail["pgo"] == "on" and detail["spec_chunks"] is not None
+          and any(st["chosen"] == detail["spec_chunks"] for st in picks)
+          and all(None not in st["best_ms"].values()
+                  and st["best_ms"][str(st["chosen"])]
+                  == min(st["best_ms"].values()) for st in picks),
+          f"bench: pgo {detail['pgo']!r}, spec_chunks "
+          f"{detail['spec_chunks']}, the fastest candidate by the bench's "
+          f"own trials (spec_tuner {tuned})")
     check(detail["card"] == card and detail["device"] != "cpu",
           f"bench: card {detail['card']!r}, device {detail['device']!r}")
     check(all(n > 0 for n in launches.values()),

@@ -27,7 +27,9 @@ the NVIDIA H100 SXM's 3.35 TB/s, over ``bench.py``'s byte counts.
 Key map (``bench.py`` key -> port route -> kernel):
 
 - ``entropy_host_fps``, ``entropy_corpus_fps``,
-  ``entropy_speculative_norestart_fps`` (``spec_chunks`` = 4 x host cores),
+  ``entropy_speculative_norestart_fps`` (``spec_chunks``: the chunk tuner's
+  pick for that frame, ``spec_tuner``: its snapshot, each candidate's best
+  trial), ``pgo`` (``runtime.pgo_status()`` of the loaded runtime),
   ``lossless_1080p_fps``, ``arithmetic_4k_entropy_fps``,
   ``arithmetic_4k_corpus_fps``, ``progressive_4k_entropy_fps``,
   ``progressive_4k_corpus_fps`` -> ``runtime`` (C++ on the host);
@@ -59,8 +61,7 @@ Key map (``bench.py`` key -> port route -> kernel):
 
 Left out: ``libjpeg_1thread_fps``, ``libjpeg_allcore_fps``,
 ``vs_baseline`` and ``vs_libjpeg_allcore`` (the card's machine has no PIL,
-so libjpeg cannot run there); ``spec_tuner`` and ``pgo`` (the port has no
-chunk tuner and no PGO build). :func:`bench_device_entropy_inkernel` (K4)
+so libjpeg cannot run there). :func:`bench_device_entropy_inkernel` (K4)
 is ported and, as in ``bench.py``, not called by :func:`main`.
 
 Inputs, at the default sizes: the 4K restart-per-row frames are the
@@ -134,7 +135,7 @@ BATCHED_1080P_IMAGES = 32
 # plus the port's own (module docstring).
 KEYS = frozenset({
     "entropy_host_fps", "entropy_corpus_fps",
-    "entropy_speculative_norestart_fps", "spec_chunks",
+    "entropy_speculative_norestart_fps", "spec_chunks", "spec_tuner", "pgo",
     "lossless_1080p_fps", "arithmetic_4k_entropy_fps",
     "arithmetic_4k_corpus_fps", "progressive_4k_entropy_fps",
     "progressive_4k_corpus_fps", "encode_4k_fps", "encode_4k_corpus_fps",
@@ -370,12 +371,21 @@ def bench_host_entropy_corpus(plan, iters: int = 24):
 
 def bench_speculative(plan, iters: int = 8):
     """The threaded decode of a frame without restart markers: speculative,
-    in ``4 * n_threads`` chunks."""
-    n_threads = os.cpu_count() or 1
+    in the chunk counts the runtime's tuner hands out (its trials first,
+    then its pick, as in ``bench.py``)."""
     runtime.native_decode_planes(plan)
     return (lambda: {"entropy_speculative_norestart_fps": iters / host_s(
-        lambda: runtime.native_decode_planes(plan), iters)}), {
-        "spec_chunks": 4 * n_threads}
+        lambda: runtime.native_decode_planes(plan), iters)}), {}
+
+
+def spec_tuner_detail(plan) -> dict:
+    """``spec_chunks`` (the tuner's pick for ``plan``'s class, None before
+    it picks or when the frame does not decode speculatively),
+    ``spec_tuner`` (its snapshot) and ``pgo``."""
+    tuner = runtime.spec_tuner_snapshot()
+    pick = tuner.get(str(runtime.SpecTuner.key(plan)), {}).get("chosen")
+    return {"spec_chunks": pick, "spec_tuner": tuner,
+            "pgo": runtime.pgo_status()}
 
 
 def bench_lossless(plan, iters: int = 6):
@@ -808,8 +818,11 @@ def main(argv=None) -> dict:
     b.rung("cpu_work_unit", bench_cpu_work_unit)
     b.rung("host_entropy", lambda: bench_host_entropy(plan))
     b.rung("host_entropy_corpus", lambda: bench_host_entropy_corpus(plan))
-    b.rung("speculative_norestart", lambda: bench_speculative(
-        parse_jpeg(inp.norestart_4k)))
+    plan_nr = parse_jpeg(inp.norestart_4k)
+    b.rung("speculative_norestart", lambda: bench_speculative(plan_nr))
+    b.detail.update(spec_tuner_detail(plan_nr))
+    log(f"speculative: chunks {b.detail['spec_chunks']}, pgo "
+        f"{b.detail['pgo']}, tuner {b.detail['spec_tuner']}")
     b.rung("lossless", lambda: bench_lossless(parse_jpeg(inp.lossless_1080)))
     b.rung("arithmetic", lambda: bench_arithmetic(parse_jpeg(inp.arith_4k)))
     b.rung("progressive", lambda: bench_progressive(parse_jpeg(inp.prog_4k)))

@@ -173,6 +173,18 @@ def test_import_never_loads_jax():
             "import jpeg_tpu_torch.bench; "
             "import jpeg_tpu_torch.tools.endurance; "
             "import jpeg_tpu_torch.tools.measure_approx_quality; "
+            "import jpeg_tpu_torch.tools.pgo_train; "
+            "import jpeg_tpu_torch.tools.ab_host_entropy; "
+            "import jpeg_tpu_torch.tools.abench; "
+            "import jpeg_tpu_torch.tools.dump_scan; "
+            "import jpeg_tpu_torch.tools.dump_prog; "
+            "import jpeg_tpu_torch.tools.microbench; "
+            "import jpeg_tpu_torch.tools.arith_ref; "
+            "import jpeg_tpu_torch.tools.asan_sweep; "
+            "import jpeg_tpu_torch.tools.sentinel; "
+            "from jpeg_tpu_torch import runtime; runtime.load(); "
+            "assert runtime.pgo_status() == 'on'; "
+            "assert runtime.spec_tuner_snapshot() == {}; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'jpeg_tpu' not in sys.modules, 'jpeg_tpu loaded'")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -192,3 +204,71 @@ def test_port_sources_name_no_jax_import():
             if f.endswith(".py"):
                 with open(os.path.join(root, f)) as fh:
                     assert not pat.search(fh.read()), f
+
+
+def test_no_include_or_build_command_names_the_jax_package(monkeypatch):
+    """No C, C++ or CUDA file of the port includes a file inside jpeg_tpu/,
+    and every build the port's host tools run (the runtime's profile-guided
+    build, its plain and ASan builds, the microbenchmarks, the libjpeg
+    harness) compiles only sources inside jpeg_tpu_torch/ and names no path
+    inside jpeg_tpu/."""
+    import re
+
+    from jpeg_tpu_torch import runtime
+    from jpeg_tpu_torch.tools import ab_host_entropy, arith_ref, microbench
+    from jpeg_tpu_torch.utils import build
+
+    pkg = os.path.realpath(os.path.join(REPO, "jpeg_tpu_torch")) + os.sep
+    jax_pkg = os.path.realpath(os.path.join(REPO, "jpeg_tpu")) + os.sep
+    include = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+    n_includes = 0
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith((".c", ".cc", ".cpp", ".cu", ".cuh", ".h")):
+                with open(os.path.join(root, f)) as fh:
+                    for name in include.findall(fh.read()):
+                        target = os.path.realpath(os.path.join(root, name))
+                        assert target.startswith(pkg), (f, name)
+                        n_includes += 1
+    assert n_includes >= 5
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(name, compiler, sources, headers=(), **kw):
+        seen.append((name, [*compiler, *sources, *headers,
+                            *kw.get("libs", ()),
+                            *(kw["pgo"].command + kw["pgo"].inputs
+                              if kw.get("pgo") else ())], sources))
+        raise Stop(name)
+
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build_library", spy)
+    monkeypatch.setattr(build, "build_executable", spy)
+    monkeypatch.setattr(arith_ref, "build_executable", spy)
+    monkeypatch.setattr(runtime, "load_library", lambda name, compiler,
+                        sources, configure, headers=(), pgo=None: spy(
+                            name, compiler, sources, headers, pgo=pgo))
+    monkeypatch.setattr(arith_ref, "find_header", lambda: "jpeglib.h")
+    calls = [(False, runtime.load), (False, runtime.load_encoder),
+             (False, lambda: ab_host_entropy.build_variant("plain", "")),
+             (False, arith_ref.build),
+             *((False, lambda n=n: microbench.build(n))
+               for n in microbench.PROGRAMS),
+             (True, runtime.load), (True, runtime.load_encoder)]
+    for asan, call in calls:
+        monkeypatch.setenv("JPEG_TPU_ASAN", "1" if asan else "0")
+        with pytest.raises(Stop):
+            call()
+    assert {n for n, _, _ in seen} >= {
+        "jpegtpu", "jpegtpu_enc", "jpegtpu.ab_plain", "jpeg_arith_ref",
+        "jpegtpu_asan", "jpegtpu_enc_asan", *microbench.PROGRAMS}
+    for name, args, sources in seen:
+        for src in sources:
+            assert os.path.realpath(src).startswith(pkg), (name, src)
+        for arg in args:
+            assert not os.path.realpath(arg).startswith(jax_pkg), (name, arg)
+            assert "jpeg_tpu/" not in arg.replace("jpeg_tpu_torch/", ""), (
+                name, arg)

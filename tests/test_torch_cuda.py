@@ -756,3 +756,15 @@ def test_k7_kernel_equals_plain_on_corrupt_streams(cuda, seed):
     plan.scan_data[pos] ^= rng.integers(1, 256, size=3).astype(np.uint8)
     _k7_against_plain(plan, 48, 4, cuda)
 
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4", "K7"])
+def test_two_sentinels_on_damaged_lanes(cuda, kernel):
+    """Every entry a consumer reads is written by the kernel: run over the
+    fuzz's damaged cases (seeds 0-2) with the module's torch.empty outputs
+    pre-filled by two different bytes, the read entries are equal."""
+    from jpeg_tpu_torch.tools import sentinel
+
+    rec = sentinel.check(cuda, range(3), (kernel,))[kernel]
+    assert rec["cases"] > 0 and rec["launches"] >= 2 * rec["cases"], rec
+    assert rec["read_differ"] == [], rec

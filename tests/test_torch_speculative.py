@@ -64,10 +64,14 @@ def test_explicit_chunk_counts(n_chunks):
 @pytest.mark.parametrize("n_threads,n_chunks,want", [(2, None, 8),
                                                      (3, None, 12),
                                                      (2, 5, 5)])
-def test_chunk_count_is_four_per_thread(monkeypatch, n_threads, n_chunks,
-                                        want):
+def test_chunk_count_is_four_per_thread(monkeypatch, tmp_path, n_threads,
+                                        n_chunks, want):
     """Without ``n_chunks`` the speculative decode takes ``4 * n_threads``
-    chunks, the first count the JAX runtime's tuner tries."""
+    chunks, the first count the JAX runtime's tuner tries: here the tuner
+    starts afresh (its state is per process and persisted, so earlier calls
+    on this geometry class would have moved it on)."""
+    monkeypatch.setattr(rt, "_TUNER", rt.SpecTuner(
+        str(tmp_path / "spec_tuner.json"), lambda: "test"))
     lib = rt.load()
     seen = []
 
