@@ -1,0 +1,8 @@
+"""Frames returned by the decode calls completed in the window, over the
+time from the window's start to the last completion."""
+
+
+def read(ctx):
+    if ctx.entry != "decode_all":
+        return None
+    return ctx.frames / (ctx.calls[-1].t1 - ctx.window_start)
