@@ -1,0 +1,9 @@
+"""Share of the traced decode calls' window in which the device is idle
+and the calling thread is inside ``decode.pixel`` (stack, K1's H2D and
+launch, crop and D2H of a bucket)."""
+
+from benchmark.spans import idle_pct_in
+
+
+def read(ctx):
+    return idle_pct_in(ctx, "decode_all", "decode.call", "decode.pixel")

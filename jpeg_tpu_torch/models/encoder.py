@@ -37,6 +37,8 @@ from jpeg_tpu_torch.runtime import (
     native_encode_progressive_scans,
     native_encode_scan,
 )
+from jpeg_tpu_torch.utils import profiling
+from jpeg_tpu_torch.utils.profiling import span
 
 
 def _build_encode_maps(table: HuffmanTable):
@@ -374,15 +376,29 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
     twin on the CPU. Its quantized int16 planes come back to the host once
     and the C++ entropy encoder packs them in parallel. Not byte-identical
     to :func:`encode_rgb` (K2 multiplies by a reciprocal table where the
-    host route divides); equivalent quality.
+    host route divides); equivalent quality. Under ``torch.profiler`` the
+    call is recorded as ``encode.call``
+    (:mod:`jpeg_tpu_torch.utils.profiling`).
     """
     from jpeg_tpu_torch.parallel.batch import encode_batch_device
 
-    geom, planar, iq, quant_zz = device_inputs(rgb, quality, subsampling,
-                                               grayscale)
-    planes = encode_batch_device(planar[None], iq[None], geom, device=device)
-    planes = [p[0].cpu().numpy() for p in planes]
-    return pack_planes(planes, geom, quant_zz, restart_interval_mcus, optimize)
+    with profiling.call("encode.call") as root:
+        with span("encode.prepare"):
+            geom, planar, iq, quant_zz = device_inputs(rgb, quality,
+                                                       subsampling, grayscale)
+        with span("encode.k2"):
+            planes = encode_batch_device(planar[None], iq[None], geom,
+                                         device=device)
+        with span("encode.d2h"):
+            planes = [p[0].cpu().numpy() for p in planes]
+        with span("encode.pack"):
+            data = pack_planes(planes, geom, quant_zz, restart_interval_mcus,
+                               optimize)
+        if root:
+            root.add("frames", 1)
+            root.add("bytes_in", np.asarray(rgb).nbytes)
+            root.add("bytes_out", len(data))
+    return data
 
 
 def _container(scan, samplings, quant_zz, dc_t, ac_t, height, width,

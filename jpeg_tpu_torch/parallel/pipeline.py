@@ -20,8 +20,8 @@ the decoder's device.
 
 With ``hybrid_device=True`` a device thread also claims batches from the
 back of the work list and decodes their entropy with K3
-(``entropy/device_window.py::decode_coefficients_device5_batch``) while the
-host threads drain the front. Only three things send a claimed image to the
+(``entropy/device_huffman.py``: ``prepare_lane_batch``, then
+``decode_prepared_batch``) while the host threads drain the front. Only three things send a claimed image to the
 host route: a per-lane error bit, a plan the device route does not take
 (:meth:`BatchedCorpusDecoder._device_eligible`: progressive, arithmetic,
 RGB-direct, CMYK and YCCK plans among them), and a batch whose Huffman
@@ -47,7 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from jpeg_tpu_torch.entropy import device_huffman, device_window
+from jpeg_tpu_torch.entropy import device_huffman
 from jpeg_tpu_torch.io.container import parse_jpeg
 from jpeg_tpu_torch.models.decoder import (
     PipelineGeometry,
@@ -59,6 +59,8 @@ from jpeg_tpu_torch.models.decoder import (
 )
 from jpeg_tpu_torch.ops.fused_plane import check_idct_mode, plan_quant_patterns
 from jpeg_tpu_torch.parallel.batch import decode_batch_fast
+from jpeg_tpu_torch.utils import profiling
+from jpeg_tpu_torch.utils.profiling import span
 
 # Images per device claim. A 4K frame with a restart marker per MCU row has
 # 135 lanes, so 8 frames give K3 1,080 lanes.
@@ -200,15 +202,18 @@ class BatchedCorpusDecoder:
             self._dev_pool = ThreadPoolExecutor(max_workers=1)
         return self._pool, self._dev_pool
 
-    def _entropy_one(self, item):
+    def _entropy_one(self, item, route: str = "host"):
         """Host route -> (name, plan, geom, planes, error). Plans K1 does
         not take (another colour model, 12-bit, lossless) are decoded here
         through the compat path on ``self.device``: geom is then
-        ``"compat"`` and planes the image."""
+        ``"compat"`` and planes the image. ``route`` (``"host"`` or
+        ``"fallback"``) is counted on the ``decode.host_entropy`` span."""
         try:
-            plan = parse_jpeg(_read(item))
+            with span("decode.parse"):
+                plan = parse_jpeg(_read(item))
             if not fast_path_takes(plan):
-                rgb = decode_plan(plan, self.rounding, device=self.device)
+                with span("decode.compat"):
+                    rgb = decode_plan(plan, self.rounding, device=self.device)
                 return (_name(item), plan, "compat", rgb, None)
             # The runtime hands back this thread's scratch buffers: copy
             # before the thread decodes another same-geometry image, or the
@@ -216,7 +221,9 @@ class BatchedCorpusDecoder:
             # its hybrid corpus test). Baseline Huffman decodes on this
             # thread alone; progressive and arithmetic decodes take the cpu
             # count's threads, as in the JAX package.
-            planes = [p.copy() for p in host_planes(plan, n_threads=1)]
+            with span("decode.host_entropy") as sp:
+                planes = [p.copy() for p in host_planes(plan, n_threads=1)]
+                sp.add(route, 1)
             return (_name(item), plan, PipelineGeometry.of(plan), planes,
                     None)
         except Exception as e:  # noqa: BLE001 — per-image isolation boundary
@@ -238,6 +245,7 @@ class BatchedCorpusDecoder:
         work = deque(range(len(items)))
         lk = threading.Lock()
         k = self.device_batch
+        frame = profiling.current()
 
         def pop_front():
             with lk:
@@ -252,19 +260,22 @@ class BatchedCorpusDecoder:
                 return None
 
         def host_worker():
-            while (i := pop_front()) is not None:
-                parsed[i] = self._entropy_one(items[i])
+            with profiling.adopt(frame):
+                while (i := pop_front()) is not None:
+                    parsed[i] = self._entropy_one(items[i])
 
         def to_host(idxs):
             with lk:
                 self.fallback_frames += len(idxs)
             for i in idxs:
                 routes[i] = "fallback"
-                parsed[i] = self._entropy_one(items[i])
+                parsed[i] = self._entropy_one(items[i], "fallback")
 
         def finalize(pend):
             idxs, plans, coeffs, err = pend
-            err = err.cpu().numpy()  # waits for this launch
+            with span("decode.k3_wait") as sp:
+                err = err.cpu().numpy()  # waits for this launch
+                sp.add("frames", len(idxs))
             off = 0
             for i, p, c in zip(idxs, plans, coeffs):
                 seg_err = bool(err[off : off + len(p.segments)].any())
@@ -273,8 +284,11 @@ class BatchedCorpusDecoder:
                     to_host([i])
                     continue
                 geom = PipelineGeometry.of(p)
-                planes = [x.cpu().numpy()
-                          for x in coefficient_planes_from_blocks(c, geom)]
+                with span("decode.relayout_d2h") as sp:
+                    planes = [x.cpu().numpy()
+                              for x in coefficient_planes_from_blocks(c, geom)]
+                    if sp:
+                        sp.add("bytes", sum(x.nbytes for x in planes))
                 parsed[i] = (_name(items[i]), p, geom, planes, None)
                 routes[i] = "device"
                 with lk:
@@ -286,7 +300,8 @@ class BatchedCorpusDecoder:
             keep, plans, host = [], [], []
             for i in idxs:
                 try:
-                    plan = parse_jpeg(_read(items[i]))
+                    with span("decode.parse"):
+                        plan = parse_jpeg(_read(items[i]))
                 except Exception:  # noqa: BLE001 — bad input, not a device
                     # failure: the host route's isolation boundary records it
                     host.append(i)
@@ -304,18 +319,24 @@ class BatchedCorpusDecoder:
             stream = torch.cuda.Stream(self.device) if on_cuda else None
             ctx = torch.cuda.stream(stream) if on_cuda else contextlib.nullcontext()
             pending = None
-            with ctx:
+            with ctx, profiling.adopt(frame):
                 while (idxs := pop_back_batch()) is not None:
-                    idxs, plans = claim_plans(idxs)
+                    with span("decode.claim") as sp:
+                        sp.add("frames", len(idxs))
+                        idxs, plans = claim_plans(idxs)
                     if not plans:
                         continue
                     try:
-                        coeffs, err = (
-                            device_window.decode_coefficients_device5_batch(
-                                plans, self.device, to_host=False))
+                        with span("decode.k3_prepare") as sp:
+                            batch = device_huffman.prepare_lane_batch(plans)
+                            sp.add("frames", len(plans))
+                            sp.add("bytes", batch.data.nbytes)
                     except device_huffman.BatchMismatch:  # before launch
                         to_host(idxs)
                         continue
+                    with span("decode.k3_launch"):
+                        coeffs, err = device_huffman.decode_prepared_batch(
+                            batch, self.device)
                     with lk:
                         self.entropy_launches += 1
                     # One launch in flight: finalize the previous claim only
@@ -335,13 +356,38 @@ class BatchedCorpusDecoder:
         return parsed
 
     def decode_all(self, items) -> list[DecodeResult]:
-        """Decode a list of paths or byte strings; order preserved."""
-        if self.hybrid_device:
-            parsed = self._hybrid_parse(items)
-        else:
-            pool, _ = self._pools()
-            parsed = list(pool.map(self._entropy_one, items))
-            self.routes = ["host"] * len(items)
+        """Decode a list of paths or byte strings; order preserved. Under
+        ``torch.profiler`` the call is recorded as ``decode.call``
+        (:mod:`jpeg_tpu_torch.utils.profiling`), its counts on that span."""
+        with profiling.call("decode.call") as root:
+            if root:
+                before = (self.entropy_launches, self.pixel_launches)
+            results, parsed, buckets = self._decode_all(items)
+            if root:
+                for route in ("host", "device", "fallback"):
+                    root.add(f"{route}_frames", self.routes.count(route))
+                root.add("frames", len(items))
+                root.add("compat_frames", sum(p[2] == "compat" for p in parsed))
+                root.add("error_frames", sum(p[4] is not None for p in parsed))
+                root.add("buckets", len(buckets))
+                root.add("k3_launches", self.entropy_launches - before[0])
+                root.add("k1_launches", self.pixel_launches - before[1])
+        return results
+
+    def _decode_all(self, items):
+        with span("decode.entropy"):
+            if self.hybrid_device:
+                parsed = self._hybrid_parse(items)
+            else:
+                pool, _ = self._pools()
+                frame = profiling.current()
+
+                def one(item):
+                    with profiling.adopt(frame):
+                        return self._entropy_one(item)
+
+                parsed = list(pool.map(one, items))
+                self.routes = ["host"] * len(items)
 
         results: list = [None] * len(parsed)
         buckets: dict = {}
@@ -360,18 +406,27 @@ class BatchedCorpusDecoder:
             for chunk, mesh in ((idxs[:spill_from], self.mesh),
                                 (idxs[spill_from:], None)):
                 if chunk:
-                    self._pixel_stage(parsed, results, geom, chunk, mesh)
-        return results
+                    with span("decode.pixel") as sp:
+                        sp.add("frames", len(chunk))
+                        self._pixel_stage(parsed, results, geom, chunk, mesh)
+        return results, parsed, buckets
 
     def _pixel_stage(self, parsed, results, geom, idxs, mesh) -> None:
         """K1 over one bucket's frames ``idxs``, on ``mesh`` or unsharded."""
-        bp = [np.stack([parsed[i][3][c] for i in idxs])
-              for c in range(len(geom.sampling))]
-        bq = np.stack([plan_quant_patterns(parsed[i][1], geom) for i in idxs])
-        planar = decode_batch_fast(bp, bq, geom, self.rounding, self.device,
-                                   self.idct_mode, mesh=mesh)
+        with span("decode.stack") as sp:
+            bp = [np.stack([parsed[i][3][c] for i in idxs])
+                  for c in range(len(geom.sampling))]
+            bq = np.stack([plan_quant_patterns(parsed[i][1], geom)
+                           for i in idxs])
+            if sp:
+                sp.add("bytes", sum(x.nbytes for x in bp) + bq.nbytes)
+        with span("decode.k1"):
+            planar = decode_batch_fast(bp, bq, geom, self.rounding,
+                                       self.device, self.idct_mode, mesh=mesh)
         self.pixel_launches += mesh.shape["data"] if mesh else 1
-        rgb = (planar[:, :, : geom.height, : geom.width]
-               .permute(0, 2, 3, 1).contiguous().cpu().numpy())
+        with span("decode.crop_d2h") as sp:
+            rgb = (planar[:, :, : geom.height, : geom.width]
+                   .permute(0, 2, 3, 1).contiguous().cpu().numpy())
+            sp.add("bytes", rgb.nbytes)
         for b, i in enumerate(idxs):
             results[i] = DecodeResult(parsed[i][0], rgb[b])
