@@ -29,6 +29,11 @@ tables or slot structure differ (``BatchMismatch``, raised before launch). Any
 other failure (a kernel that does not build, a launch or CUDA error) raises
 out of :meth:`BatchedCorpusDecoder.decode_all`.
 
+K1's input is staged (:mod:`jpeg_tpu_torch.parallel.staging`): each
+frame's planes go, as soon as they exist, into the next slot of a reused
+buffer of their geometry, page-locked where the CUDA runtime allows, and a
+bucket's slots are K1's input as they stand, with no gather.
+
 Per-image isolation: an image that cannot be decoded becomes an error
 record and never stops the corpus. A build, launch or CUDA failure (any
 ``RuntimeError``, ``NotImplementedError`` for a dtype with no CUDA kernel
@@ -59,6 +64,7 @@ from jpeg_tpu_torch.models.decoder import (
 )
 from jpeg_tpu_torch.ops.fused_plane import check_idct_mode, plan_quant_patterns
 from jpeg_tpu_torch.parallel.batch import decode_batch_fast
+from jpeg_tpu_torch.parallel.staging import Staging
 from jpeg_tpu_torch.utils import profiling
 from jpeg_tpu_torch.utils.profiling import span
 
@@ -161,11 +167,20 @@ class BatchedCorpusDecoder:
 
     Counters (cumulative over :meth:`decode_all` calls): ``device_frames``
     decoded by K3, ``fallback_frames`` claimed by the device thread but sent
-    to the host route, ``entropy_launches`` (K3) and ``pixel_launches`` (K1
-    or K1a, one a data shard under a mesh) made through this decoder.
-    ``routes`` holds, per item of the last :meth:`decode_all`, the route its
-    entropy took: ``"host"``, ``"device"`` (K3) or ``"fallback"`` (claimed
-    by the device thread, then decoded on the host).
+    to the host route, ``staged_frames`` whose planes went straight into
+    their staging slot (every K1 frame, except where a call holds more
+    frames of a geometry than its buffer has slots), ``pinned_frames`` whose
+    K1 input went up from page-locked staging, ``entropy_launches`` (K3) and
+    ``pixel_launches`` (K1 or K1a, one a data shard under a mesh) made
+    through this decoder. ``routes`` holds, per item of the last
+    :meth:`decode_all`, the route its entropy took: ``"host"``,
+    ``"device"`` (K3) or ``"fallback"`` (claimed by the device thread, then
+    decoded on the host).
+
+    One :meth:`decode_all` at a time on a decoder: the staging slots and
+    ``routes`` belong to the call in progress, and a second call made
+    while one runs raises ``RuntimeError``. :meth:`close` also frees the
+    staging buffers.
     """
 
     def __init__(self, workers: int | None = None, rounding: str = "truncate",
@@ -181,6 +196,8 @@ class BatchedCorpusDecoder:
         self.device = torch.device(device)
         self.device_frames = 0
         self.fallback_frames = 0
+        self.staged_frames = 0
+        self.pinned_frames = 0
         self.entropy_launches = 0
         self.pixel_launches = 0
         self.routes: list[str] = []
@@ -188,13 +205,18 @@ class BatchedCorpusDecoder:
         # scratch buffers and allocator arenas each time.
         self._pool = None
         self._dev_pool = None
+        # K1's input; page-locked for the card K1 runs on.
+        self._staging = Staging(mesh.first if mesh else self.device)
+        self._busy = threading.Lock()
 
     def close(self) -> None:
-        """Shut down the worker threads (idle between decode_all calls)."""
+        """Shut down the worker threads (idle between decode_all calls) and
+        free the staging buffers."""
         for pool in (self._pool, self._dev_pool):
             if pool is not None:
                 pool.shutdown(wait=True)
         self._pool = self._dev_pool = None
+        self._staging.close()
 
     def _pools(self):
         if self._pool is None:
@@ -203,18 +225,21 @@ class BatchedCorpusDecoder:
         return self._pool, self._dev_pool
 
     def _entropy_one(self, item, route: str = "host"):
-        """Host route -> (name, plan, geom, planes, error). Plans K1 does
-        not take (another colour model, 12-bit, lossless) are decoded here
-        through the compat path on ``self.device``: geom is then
-        ``"compat"`` and planes the image. ``route`` (``"host"`` or
-        ``"fallback"``) is counted on the ``decode.host_entropy`` span."""
+        """Host route -> (name, plan, geom, planes, error, slot). The
+        planes go into staging slot ``slot``; planes is None then, or the
+        frame's own copy where the buffer has no such slot yet. Plans K1
+        does not take (another colour model, 12-bit, lossless) are decoded
+        here through the compat path on ``self.device``: geom is then
+        ``"compat"``, planes the image and slot None. ``route`` (``"host"``
+        or ``"fallback"``) is counted on the ``decode.host_entropy``
+        span."""
         try:
             with span("decode.parse"):
                 plan = parse_jpeg(_read(item))
             if not fast_path_takes(plan):
                 with span("decode.compat"):
                     rgb = decode_plan(plan, self.rounding, device=self.device)
-                return (_name(item), plan, "compat", rgb, None)
+                return (_name(item), plan, "compat", rgb, None, None)
             # The runtime hands back this thread's scratch buffers: copy
             # before the thread decodes another same-geometry image, or the
             # stored planes are overwritten (a flake the JAX package met in
@@ -222,12 +247,19 @@ class BatchedCorpusDecoder:
             # thread alone; progressive and arithmetic decodes take the cpu
             # count's threads, as in the JAX package.
             with span("decode.host_entropy") as sp:
-                planes = [p.copy() for p in host_planes(plan, n_threads=1)]
+                planes = host_planes(plan, n_threads=1)
+                geom = PipelineGeometry.of(plan)
+                slot, views = self._staging.take(geom)
+                if views is None:
+                    planes = [p.copy() for p in planes]
+                else:
+                    for v, p in zip(views, planes):
+                        np.copyto(v, p)
+                    planes = None
                 sp.add(route, 1)
-            return (_name(item), plan, PipelineGeometry.of(plan), planes,
-                    None)
+            return (_name(item), plan, geom, planes, None, slot)
         except Exception as e:  # noqa: BLE001 — per-image isolation boundary
-            return (_name(item), None, None, None, _error_text(e))
+            return (_name(item), None, None, None, _error_text(e), None)
 
     @staticmethod
     def _device_eligible(plan) -> bool:
@@ -285,11 +317,17 @@ class BatchedCorpusDecoder:
                     continue
                 geom = PipelineGeometry.of(p)
                 with span("decode.relayout_d2h") as sp:
-                    planes = [x.cpu().numpy()
-                              for x in coefficient_planes_from_blocks(c, geom)]
+                    planes = coefficient_planes_from_blocks(c, geom)
                     if sp:
                         sp.add("bytes", sum(x.nbytes for x in planes))
-                parsed[i] = (_name(items[i]), p, geom, planes, None)
+                    slot, views = self._staging.take(geom)
+                    if views is None:
+                        planes = [x.cpu().numpy() for x in planes]
+                    else:
+                        for v, x in zip(views, planes):
+                            torch.from_numpy(v).copy_(x)
+                        planes = None
+                parsed[i] = (_name(items[i]), p, geom, planes, None, slot)
                 routes[i] = "device"
                 with lk:
                     self.device_frames += 1
@@ -359,22 +397,35 @@ class BatchedCorpusDecoder:
         """Decode a list of paths or byte strings; order preserved. Under
         ``torch.profiler`` the call is recorded as ``decode.call``
         (:mod:`jpeg_tpu_torch.utils.profiling`), its counts on that span."""
-        with profiling.call("decode.call") as root:
-            if root:
-                before = (self.entropy_launches, self.pixel_launches)
-            results, parsed, buckets = self._decode_all(items)
-            if root:
-                for route in ("host", "device", "fallback"):
-                    root.add(f"{route}_frames", self.routes.count(route))
-                root.add("frames", len(items))
-                root.add("compat_frames", sum(p[2] == "compat" for p in parsed))
-                root.add("error_frames", sum(p[4] is not None for p in parsed))
-                root.add("buckets", len(buckets))
-                root.add("k3_launches", self.entropy_launches - before[0])
-                root.add("k1_launches", self.pixel_launches - before[1])
-        return results
+        if not self._busy.acquire(blocking=False):
+            raise RuntimeError(
+                "decode_all is already running on this decoder: one call at "
+                "a time (its staging slots belong to the call in progress)")
+        try:
+            with profiling.call("decode.call") as root:
+                if root:
+                    before = (self.entropy_launches, self.pixel_launches,
+                              self.staged_frames, self.pinned_frames)
+                results, parsed, buckets = self._decode_all(items)
+                if root:
+                    for route in ("host", "device", "fallback"):
+                        root.add(f"{route}_frames", self.routes.count(route))
+                    root.add("frames", len(items))
+                    root.add("compat_frames",
+                             sum(p[2] == "compat" for p in parsed))
+                    root.add("error_frames",
+                             sum(p[4] is not None for p in parsed))
+                    root.add("buckets", len(buckets))
+                    root.add("k3_launches", self.entropy_launches - before[0])
+                    root.add("k1_launches", self.pixel_launches - before[1])
+                    root.add("staged_frames", self.staged_frames - before[2])
+                    root.add("pinned_frames", self.pinned_frames - before[3])
+            return results
+        finally:
+            self._busy.release()
 
     def _decode_all(self, items):
+        self._staging.begin()
         with span("decode.entropy"):
             if self.hybrid_device:
                 parsed = self._hybrid_parse(items)
@@ -391,7 +442,7 @@ class BatchedCorpusDecoder:
 
         results: list = [None] * len(parsed)
         buckets: dict = {}
-        for i, (name, plan, geom, planes, err) in enumerate(parsed):
+        for i, (name, plan, geom, planes, err, _) in enumerate(parsed):
             if err is not None:
                 results[i] = DecodeResult(name, None, error=err)
             elif geom == "compat":  # decoded inline by its worker
@@ -399,6 +450,10 @@ class BatchedCorpusDecoder:
             else:
                 buckets.setdefault(geom, []).append(i)
         for geom, idxs in buckets.items():
+            idxs.sort(key=lambda i: parsed[i][5])  # slot order: 0..n-1
+            # Frames whose slot the buffer lacked hold their own planes.
+            unslotted = {parsed[i][5]: parsed[i][3] for i in idxs
+                         if parsed[i][3] is not None}
             # A mesh takes a multiple of its size (the JAX package's rule);
             # the rest of the bucket is decoded unsharded.
             spill_from = (len(idxs) - len(idxs) % self.mesh.size
@@ -408,22 +463,36 @@ class BatchedCorpusDecoder:
                 if chunk:
                     with span("decode.pixel") as sp:
                         sp.add("frames", len(chunk))
-                        self._pixel_stage(parsed, results, geom, chunk, mesh)
+                        self._pixel_stage(parsed, results, geom, chunk, mesh,
+                                          unslotted)
+            self.staged_frames += len(idxs) - len(unslotted)
+        self._staging.end(buckets)
         return results, parsed, buckets
 
-    def _pixel_stage(self, parsed, results, geom, idxs, mesh) -> None:
-        """K1 over one bucket's frames ``idxs``, on ``mesh`` or unsharded."""
+    def _pixel_stage(self, parsed, results, geom, idxs, mesh,
+                     unslotted) -> None:
+        """K1 over one bucket's frames ``idxs`` (in slot order, a run of
+        slots), on ``mesh`` or unsharded."""
         with span("decode.stack") as sp:
-            bp = [np.stack([parsed[i][3][c] for i in idxs])
-                  for c in range(len(geom.sampling))]
+            buf, copied = self._staging.bucket(geom, unslotted)
+            lo = parsed[idxs[0]][5]
+            bp = [p[lo : lo + len(idxs)] for p in buf.planes]
             bq = np.stack([plan_quant_patterns(parsed[i][1], geom)
                            for i in idxs])
             if sp:
-                sp.add("bytes", sum(x.nbytes for x in bp) + bq.nbytes)
+                sp.add("bytes", copied + bq.nbytes)
         with span("decode.k1"):
+            if mesh is None and self.device.type == "cuda":
+                # A DMA from pinned staging; the crop's download below, on
+                # the same stream, waits for it before the slots are reused.
+                bp = [torch.from_numpy(p).to(self.device, non_blocking=True)
+                      for p in bp]
             planar = decode_batch_fast(bp, bq, geom, self.rounding,
                                        self.device, self.idct_mode, mesh=mesh)
+            del bp  # K1's input on the card, free before the crop allocates
         self.pixel_launches += mesh.shape["data"] if mesh else 1
+        if buf.pinned:
+            self.pinned_frames += len(idxs)
         with span("decode.crop_d2h") as sp:
             rgb = (planar[:, :, : geom.height, : geom.width]
                    .permute(0, 2, 3, 1).contiguous().cpu().numpy())

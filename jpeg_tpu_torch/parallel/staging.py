@@ -1,0 +1,144 @@
+"""Reused host staging for K1's input: one buffer per geometry, one slot
+per frame.
+
+:class:`~jpeg_tpu_torch.parallel.pipeline.BatchedCorpusDecoder` writes each
+frame's int16 coefficient planes into the next free slot of its geometry's
+buffer as soon as they exist (a host worker copies them out of the
+runtime's thread scratch, the device thread copies K3's relayouted planes
+down from the card). A bucket's slots ``0..n-1`` are then K1's input as
+they stand: nothing is gathered, and the buffer's pages were touched once,
+not once a call.
+
+A buffer is page-locked by registering its exact allocation with the CUDA
+runtime (``cudaHostRegister``; a caching pinned allocation would round
+1.6 GB up to 2 GB), so K1's input goes up by DMA. Where there is no CUDA
+device, or the runtime refuses, the same buffer serves unpinned.
+
+Life of a buffer: it is made in the pixel stage of the first call that
+holds its geometry, grows only when a call holds more frames of its geometry than it
+has slots, and is given up at the end of a call that holds none. A frame
+whose slot the buffer does not have yet keeps its own copy of its planes,
+which :meth:`Staging.bucket` moves into the grown buffer. One call at a
+time: slots belong to the call in progress.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import weakref
+
+import numpy as np
+import torch
+
+from jpeg_tpu_torch.ops.fused_plane import padded_plane_shapes
+
+# cudaHostRegisterPortable: page-locked for every card's context, as a
+# mesh's data shards upload from one buffer to several cards.
+_PORTABLE = 1
+
+
+def page_lock(array: np.ndarray, device: torch.device):
+    """Page-lock ``array``'s memory, exactly its bytes, for DMA to and from
+    ``device``'s card. Returns the callable that unlocks it now (it also
+    runs when the array is collected), or None where ``device`` is not a
+    CUDA device or the runtime refuses (the array then stays pageable)."""
+    if device.type != "cuda":
+        return None
+    rt = torch.cuda.cudart()
+    ptr = array.ctypes.data
+    with torch.cuda.device(device):
+        if int(rt.cudaHostRegister(ptr, array.nbytes, _PORTABLE)):
+            # The runtime keeps the refusal as this thread's last error,
+            # which PyTorch's next launch check would raise as its own
+            # failure: consume it with a launch of ours.
+            with contextlib.suppress(RuntimeError):
+                torch.ones(1, device=device)
+            return None
+    unlock = weakref.finalize(array, rt.cudaHostUnregister, ptr)
+    unlock.atexit = False  # the process's end frees it; CUDA may be gone
+    return unlock
+
+
+class _Buffer:
+    """One geometry's slots: per component a [capacity, rows, stride] int16
+    view of one allocation."""
+
+    def __init__(self, geom, capacity: int, device: torch.device):
+        shapes = padded_plane_shapes(geom)
+        sizes = [capacity * r * s for r, s in shapes]
+        self.base = np.empty(sum(sizes), np.int16)
+        offsets = np.cumsum([0] + sizes)
+        self.planes = [self.base[a:b].reshape(capacity, *shape)
+                       for a, b, shape in zip(offsets, offsets[1:], shapes)]
+        self.capacity = capacity
+        self._unlock = page_lock(self.base, device)
+        self.pinned = self._unlock is not None
+
+    def release(self) -> None:
+        if self._unlock is not None:
+            self._unlock()
+        self.base = self.planes = None
+
+
+class Staging:
+    """The per-geometry buffers of one decoder (``device``: the card K1's
+    input goes to, whose runtime page-locks them)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.buffers: dict = {}  # geometry -> _Buffer
+        self._taken: dict = {}   # geometry -> slots taken in this call
+        self._lock = threading.Lock()
+
+    def begin(self) -> None:
+        """Start a call: no slot taken."""
+        self._taken = {}
+
+    def take(self, geom) -> tuple[int, list | None]:
+        """The next free slot of ``geom`` in this call, with its
+        per-component [rows, stride] views; the views are None where the
+        buffer has no such slot yet. Any thread; take a slot only for planes
+        that exist, so that a bucket's slots have no holes."""
+        with self._lock:
+            slot = self._taken.get(geom, 0)
+            self._taken[geom] = slot + 1
+            buf = self.buffers.get(geom)
+        if buf is None or slot >= buf.capacity:
+            return slot, None
+        return slot, [p[slot] for p in buf.planes]
+
+    def bucket(self, geom, unslotted: dict) -> tuple[_Buffer, int]:
+        """``geom``'s buffer with a slot for every frame of this call, and
+        the bytes copied to make it. The caller's thread, once every slot
+        is filled. Where the call took more slots than the buffer has, a
+        buffer of the call's size replaces it: the old slots are copied
+        over, and so are ``unslotted`` (slot -> planes: the frames whose
+        slot the old buffer lacked)."""
+        n = self._taken.get(geom, 0)
+        old = self.buffers.get(geom)
+        if old is not None and old.capacity >= n:
+            return old, 0
+        new = _Buffer(geom, n, self.device)
+        copied = 0
+        if old is not None:
+            for dst, src in zip(new.planes, old.planes):
+                dst[: old.capacity] = src
+                copied += src.nbytes
+            old.release()
+        for slot, planes in unslotted.items():
+            for dst, p in zip(new.planes, planes):
+                dst[slot] = p
+                copied += p.nbytes
+        self.buffers[geom] = new
+        return new, copied
+
+    def end(self, geoms) -> None:
+        """End a call: give up the buffers of geometries it did not hold."""
+        for geom in [g for g in self.buffers if g not in geoms]:
+            self.buffers.pop(geom).release()
+
+    def close(self) -> None:
+        for buf in self.buffers.values():
+            buf.release()
+        self.buffers = {}

@@ -123,6 +123,54 @@ def test_batched_decoder_every_stream_kind(mixed, hybrid):
         assert bd.device_frames > 0 and bd.entropy_launches > 0
 
 
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_staging_interleaved_geometries(mixed, hybrid):
+    """The mixed corpus shuffled, so that two geometries, error records and
+    compat items interleave. Each call equals the single-image decodes;
+    there is one unpinned buffer per K1 geometry (no CUDA device); the
+    first call makes them, the second writes every K1 frame straight into
+    its slot; a call without a geometry gives its buffer up."""
+    items, kinds = mixed
+    order = np.random.default_rng(7).permutation(len(items))
+    items, kinds = [items[j] for j in order], [kinds[j] for j in order]
+    geom_of = {j: dec.PipelineGeometry.of(parse_jpeg(d))
+               for j, (d, k) in enumerate(zip(items, kinds)) if k == "k1"}
+    bd = BatchedCorpusDecoder(workers=2, hybrid_device=hybrid, device_batch=2,
+                              device="cpu")
+    for call in range(2):
+        before = bd.staged_frames
+        _check(bd.decode_all(items), items, kinds, fast_k1=True)
+        assert bd.staged_frames - before == (len(geom_of) if call else 0)
+        assert set(bd._staging.buffers) == set(geom_of.values())
+    assert len(bd._staging.buffers) == 2
+    assert bd.pinned_frames == 0
+    assert not any(b.pinned for b in bd._staging.buffers.values())
+    gray = [j for j, g in geom_of.items() if g.color_model == "gray"]
+    _check(bd.decode_all([items[j] for j in gray]), [items[j] for j in gray],
+           ["k1"] * len(gray), fast_k1=True)
+    assert set(bd._staging.buffers) == {geom_of[gray[0]]}
+    bd.close()
+
+
+def test_staged_mesh_chunks_are_runs_of_slots():
+    """Under a mesh of 3, a bucket of 13 frames is 12 data-sharded frames
+    and 1 unsharded, each a run of slots; K3 claims (taken in reverse)
+    and a quantisation table per frame make any mismatch show."""
+    items = [encode_rgb(synthetic_image(96, 64, seed=i), quality=(50, 90)[i % 2],
+                        restart_interval_mcus=3) for i in range(13)]
+    mesh = make_mesh(n_data=3, devices=["cpu"] * 3)
+    bd = BatchedCorpusDecoder(workers=2, hybrid_device=True, device_batch=2,
+                              device="cpu", mesh=mesh)
+    for _ in range(2):
+        launches = bd.pixel_launches
+        for r, data in zip(bd.decode_all(items), items):
+            np.testing.assert_array_equal(
+                r.rgb, decode_bytes(data, path="fast", device="cpu"))
+        assert bd.pixel_launches - launches == 3 + 1
+    assert bd.device_frames > 0 and bd.staged_frames == len(items)
+    bd.close()
+
+
 def test_worker_copies_progressive_planes():
     """Two progressive frames of one geometry through one worker thread:
     each result is its own frame (the worker copies the runtime's scratch

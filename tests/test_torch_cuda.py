@@ -262,6 +262,37 @@ def test_hybrid_corpus_on_card(cuda):
             r.rgb, decode_bytes(data, path="fast", device="cpu"))
 
 
+def test_corpus_staging_is_page_locked_on_card(cuda):
+    """K1's input goes up from page-locked staging: every K1 frame of a
+    call counts in ``pinned_frames``, the buffer is pinned memory to
+    PyTorch, a second call of the same size writes every frame straight
+    into its slot, and a refused registration leaves no error behind for
+    the next launch."""
+    from jpeg_tpu_torch.parallel import staging
+
+    items = [_read(SMALL[0])] * 12 + [_read(SMALL[2])] * 3  # two geometries
+    dec = BatchedCorpusDecoder(workers=2, hybrid_device=True, device_batch=2,
+                               device=cuda)
+    for call in range(2):
+        pinned, staged = dec.pinned_frames, dec.staged_frames
+        got = dec.decode_all(items)
+        assert dec.pinned_frames - pinned == len(items)
+        assert dec.staged_frames - staged == (len(items) if call else 0)
+        for data, r in zip(items, got):
+            np.testing.assert_array_equal(
+                r.rgb, decode_bytes(data, path="fast", device="cpu"))
+    assert dec.device_frames > 0
+    bufs = list(dec._staging.buffers.values())
+    assert len(bufs) == 2 and all(b.pinned for b in bufs)
+    assert all(torch.from_numpy(p).is_pinned() for b in bufs for p in b.planes)
+    base = bufs[0].base
+    assert staging.page_lock(base, cuda) is None  # registered already
+    assert torch.equal(torch.ones(2, device=cuda) * 2,
+                       torch.full((2,), 2.0, device=cuda))
+    dec.close()
+    assert not torch.from_numpy(base).is_pinned()
+
+
 def _image(width, height, seed):
     """Smooth colour fields plus noise, made with numpy from a seed."""
     rng = np.random.default_rng(seed)

@@ -157,6 +157,110 @@ def test_tail_guard_leaves_small_corpus_to_host():
     assert dec.device_frames == 0 and dec.entropy_launches == 0
 
 
+def _fast(data):
+    return decode_bytes(data, path="fast", device="cpu")
+
+
+@pytest.mark.parametrize("tables", ["shared", "per_frame"])
+def test_staged_bucket_mixes_routes(tables):
+    """One bucket of host, device (K3's twin) and fallback frames, plus a
+    frame that becomes an error record, staged: each call equals the
+    single-image decode in order. K3 takes a claim's frames in reverse
+    order, so their slots run against the item order; with a quantisation
+    table per frame, K1's tables must follow the slots. The first call
+    makes the buffer (no frame had a slot), the second writes every frame
+    straight into its slot."""
+    qualities = [85] if tables == "shared" else [40, 60, 85, 95]
+    frames = [encode_rgb(synthetic_image(96, 64, seed=i), subsampling=(2, 2),
+                         restart_interval_mcus=3,
+                         quality=qualities[i % len(qualities)])
+              for i in range(14)]
+    # The device thread claims from the back: the poisoned frame fails its
+    # lane and goes back to the host route (fallback), its neighbour is K3's.
+    items = frames[:12] + [_poisoned(frames[12]), frames[13]]
+    dec = BatchedCorpusDecoder(workers=2, hybrid_device=True, device_batch=2,
+                               device="cpu")
+    for call in range(2):
+        staged, launches = dec.staged_frames, dec.pixel_launches
+        got = dec.decode_all(items)
+        assert dec.pixel_launches - launches == 1  # one bucket
+        assert dec.staged_frames - staged == (13 if call else 0)
+        assert not got[12].ok and "NativeDecodeError" in got[12].error
+        for g, data in zip(got[:12] + got[13:], items[:12] + items[13:]):
+            np.testing.assert_array_equal(g.rgb, _fast(data))
+        assert {"host", "device", "fallback"} <= set(dec.routes)
+    assert dec.pinned_frames == 0  # no CUDA device: unpinned staging
+    (buf,) = dec._staging.buffers.values()
+    assert buf.capacity == 13 and not buf.pinned
+    dec.close()
+    assert dec._staging.buffers == {}
+
+
+def test_staging_grows_and_results_stay_their_own():
+    """Calls of 3, 6 and 2 frames of one geometry on one decoder: the buffer
+    grows to 6 slots in the second call (its first 3 frames straight into
+    their slots) and is reused by the third; no call's results share
+    memory with another's or with the staging, and the first call's arrays
+    are unchanged by the later calls."""
+    corpus = _corpus(11)
+    calls = [corpus[:3], corpus[3:9], corpus[9:]]
+    dec = BatchedCorpusDecoder(workers=2, device="cpu")
+    results, staged, buffers = [], [], []
+    for items in calls:
+        before = dec.staged_frames
+        results.append(dec.decode_all(items))
+        staged.append(dec.staged_frames - before)
+        (buf,) = dec._staging.buffers.values()
+        buffers.append(buf)
+    first = [r.rgb.copy() for r in results[0]]
+    assert staged == [0, 3, 2]
+    assert [b.capacity for b in buffers] == [3, 6, 6]
+    assert buffers[1] is buffers[2] and buffers[0] is not buffers[1]
+    for items, res in zip(calls, results):
+        for r, data in zip(res, items):
+            np.testing.assert_array_equal(r.rgb, _fast(data))
+            assert not np.shares_memory(r.rgb, buffers[2].base)
+    for a, b in zip(results[0], results[1] + results[2]):
+        assert not np.shares_memory(a.rgb, b.rgb)
+    for r, want in zip(results[0], first):
+        np.testing.assert_array_equal(r.rgb, want)
+
+
+def test_a_second_concurrent_decode_all_raises(monkeypatch):
+    """Staging slots belong to the call in progress: a call made while
+    another runs on the same decoder raises, and the first is unharmed."""
+    import threading
+
+    from jpeg_tpu_torch.parallel import pipeline
+
+    entered, gate = threading.Event(), threading.Event()
+    parse = pipeline.parse_jpeg
+
+    def held(data):
+        entered.set()
+        gate.wait(timeout=60)
+        return parse(data)
+
+    monkeypatch.setattr(pipeline, "parse_jpeg", held)
+    items = _corpus(3)
+    dec = BatchedCorpusDecoder(workers=1, device="cpu")
+    box = {}
+    t = threading.Thread(target=lambda: box.update(r=dec.decode_all(items)))
+    t.start()
+    try:
+        assert entered.wait(timeout=60)
+        with pytest.raises(RuntimeError, match="already running"):
+            dec.decode_all(items)
+    finally:
+        gate.set()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    for got in (box["r"], dec.decode_all(items)):
+        for g, data in zip(got, items):
+            np.testing.assert_array_equal(g.rgb, _fast(data))
+    dec.close()
+
+
 @pytest.mark.parametrize("name", SMALL)
 @pytest.mark.parametrize("rounding", ["truncate", "round"])
 def test_decode_bytes_matches_jax_fast_path(name, rounding):

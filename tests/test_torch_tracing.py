@@ -100,6 +100,11 @@ def test_profiled_decode_records_every_thread(corpus):
     assert c["fallback_frames"] == dec.fallback_frames - fallback
     assert c["k1_launches"] == c["buckets"] == 1
     assert c["compat_frames"] == c["error_frames"] == 0
+    # a fresh decoder makes its staging buffer in this call: no frame had
+    # a slot yet, and there is no card to page-lock it for
+    assert c["staged_frames"] == c["pinned_frames"] == 0
+    (stack,) = [s for s in spans if s.name == "decode.stack"]
+    assert stack.counts["bytes"] > 0
     if corpus == "plain":  # K3 takes claims
         assert names == DECODE_SPANS
         assert c["device_frames"] > 0 and c["k3_launches"] > 0
@@ -121,6 +126,25 @@ def test_profiled_decode_records_every_thread(corpus):
             p = by_id[p.parent]
         if p is not s:
             assert p.name == "decode.entropy"
+
+
+def test_profiled_warm_decode_counts_its_staging():
+    """A second call of the same size: every frame went straight into its
+    staging slot, so ``decode.stack`` copies only the quantisation
+    tables."""
+    items, dec = _corpus(24), _decoder()
+    dec.decode_all(items)
+    before = profiling.recorded_calls()
+    with torch.profiler.profile(activities=CPU):
+        assert all(r.ok for r in dec.decode_all(items))
+    (call,) = _new_calls(before)
+    spans = profiling.recorded_spans([call.id])
+    (root,) = [s for s in spans if s.parent == 0]
+    assert root.counts["staged_frames"] == root.counts["frames"] == 24
+    assert root.counts["pinned_frames"] == 0
+    (stack,) = [s for s in spans if s.name == "decode.stack"]
+    assert stack.counts["bytes"] == 24 * 3 * 64 * 4  # [24, 3, 64] float32
+    dec.close()
 
 
 def test_profiled_encode_records_its_phases():
