@@ -32,7 +32,10 @@ out of :meth:`BatchedCorpusDecoder.decode_all`.
 K1's input is staged (:mod:`jpeg_tpu_torch.parallel.staging`): each
 frame's planes go, as soon as they exist, into the next slot of a reused
 buffer of their geometry, page-locked where the CUDA runtime allows, and a
-bucket's slots are K1's input as they stand, with no gather.
+bucket's slots are K1's input as they stand, with no gather. K1's output
+is pooled the same way: a bucket's cropped RGB comes down by DMA into a
+reused page-locked buffer of its geometry, whose views are the results,
+reused once the caller no longer holds them.
 
 Per-image isolation: an image that cannot be decoded becomes an error
 record and never stops the corpus. A build, launch or CUDA failure (any
@@ -170,7 +173,10 @@ class BatchedCorpusDecoder:
     to the host route, ``staged_frames`` whose planes went straight into
     their staging slot (every K1 frame, except where a call holds more
     frames of a geometry than its buffer has slots), ``pinned_frames`` whose
-    K1 input went up from page-locked staging, ``entropy_launches`` (K3) and
+    K1 input went up from page-locked staging, ``pinned_rgb_frames`` whose
+    RGB came down into a page-locked result buffer (every K1 frame on the
+    card, except while the caller still holds two earlier calls' results of
+    the geometry), ``entropy_launches`` (K3) and
     ``pixel_launches`` (K1 or K1a, one a data shard under a mesh) made
     through this decoder. ``routes`` holds, per item of the last
     :meth:`decode_all`, the route its entropy took: ``"host"``,
@@ -179,8 +185,10 @@ class BatchedCorpusDecoder:
 
     One :meth:`decode_all` at a time on a decoder: the staging slots and
     ``routes`` belong to the call in progress, and a second call made
-    while one runs raises ``RuntimeError``. :meth:`close` also frees the
-    staging buffers.
+    while one runs raises ``RuntimeError``. A call's results are views of
+    a result buffer the decoder reuses only once nothing refers to them;
+    they stay the caller's, unchanged, for as long as it holds them.
+    :meth:`close` also frees the staging and result buffers.
     """
 
     def __init__(self, workers: int | None = None, rounding: str = "truncate",
@@ -198,6 +206,7 @@ class BatchedCorpusDecoder:
         self.fallback_frames = 0
         self.staged_frames = 0
         self.pinned_frames = 0
+        self.pinned_rgb_frames = 0
         self.entropy_launches = 0
         self.pixel_launches = 0
         self.routes: list[str] = []
@@ -205,13 +214,13 @@ class BatchedCorpusDecoder:
         # scratch buffers and allocator arenas each time.
         self._pool = None
         self._dev_pool = None
-        # K1's input; page-locked for the card K1 runs on.
+        # K1's input and output; page-locked for the card K1 runs on.
         self._staging = Staging(mesh.first if mesh else self.device)
         self._busy = threading.Lock()
 
     def close(self) -> None:
         """Shut down the worker threads (idle between decode_all calls) and
-        free the staging buffers."""
+        free the staging and result buffers."""
         for pool in (self._pool, self._dev_pool):
             if pool is not None:
                 pool.shutdown(wait=True)
@@ -405,7 +414,8 @@ class BatchedCorpusDecoder:
             with profiling.call("decode.call") as root:
                 if root:
                     before = (self.entropy_launches, self.pixel_launches,
-                              self.staged_frames, self.pinned_frames)
+                              self.staged_frames, self.pinned_frames,
+                              self.pinned_rgb_frames)
                 results, parsed, buckets = self._decode_all(items)
                 if root:
                     for route in ("host", "device", "fallback"):
@@ -420,6 +430,8 @@ class BatchedCorpusDecoder:
                     root.add("k1_launches", self.pixel_launches - before[1])
                     root.add("staged_frames", self.staged_frames - before[2])
                     root.add("pinned_frames", self.pinned_frames - before[3])
+                    root.add("pinned_rgb_frames",
+                             self.pinned_rgb_frames - before[4])
             return results
         finally:
             self._busy.release()
@@ -458,21 +470,25 @@ class BatchedCorpusDecoder:
             # the rest of the bucket is decoded unsharded.
             spill_from = (len(idxs) - len(idxs) % self.mesh.size
                           if self.mesh else len(idxs))
+            out = self._staging.results(geom, len(idxs))
             for chunk, mesh in ((idxs[:spill_from], self.mesh),
                                 (idxs[spill_from:], None)):
                 if chunk:
                     with span("decode.pixel") as sp:
                         sp.add("frames", len(chunk))
                         self._pixel_stage(parsed, results, geom, chunk, mesh,
-                                          unslotted)
+                                          unslotted, out)
             self.staged_frames += len(idxs) - len(unslotted)
         self._staging.end(buckets)
         return results, parsed, buckets
 
-    def _pixel_stage(self, parsed, results, geom, idxs, mesh,
-                     unslotted) -> None:
+    def _pixel_stage(self, parsed, results, geom, idxs, mesh, unslotted,
+                     out) -> None:
         """K1 over one bucket's frames ``idxs`` (in slot order, a run of
-        slots), on ``mesh`` or unsharded."""
+        slots), on ``mesh`` or unsharded: the slots go up as K1's input, and
+        the cropped RGB comes down into the same rows of the bucket's result
+        array (``out``: the array and whether it is page-locked) before this
+        returns."""
         with span("decode.stack") as sp:
             buf, copied = self._staging.bucket(geom, unslotted)
             lo = parsed[idxs[0]][5]
@@ -494,8 +510,15 @@ class BatchedCorpusDecoder:
         if buf.pinned:
             self.pinned_frames += len(idxs)
         with span("decode.crop_d2h") as sp:
-            rgb = (planar[:, :, : geom.height, : geom.width]
-                   .permute(0, 2, 3, 1).contiguous().cpu().numpy())
+            array, pinned = out
+            rgb = array[lo : lo + len(idxs)]
+            # On the card PyTorch makes the crop contiguous there, then one
+            # DMA into the rows, on the stream that made planar, waited for.
+            torch.from_numpy(rgb).copy_(
+                planar[:, :, : geom.height, : geom.width].permute(0, 2, 3, 1))
             sp.add("bytes", rgb.nbytes)
+            sp.add("pinned_bytes", rgb.nbytes if pinned else 0)
+        if pinned:
+            self.pinned_rgb_frames += len(idxs)
         for b, i in enumerate(idxs):
             results[i] = DecodeResult(parsed[i][0], rgb[b])

@@ -1,5 +1,5 @@
-"""Reused host staging for K1's input: one buffer per geometry, one slot
-per frame.
+"""Reused host memory for the corpus decoder's transfers: K1's input
+staged one slot per frame, and the RGB it returns, one buffer per geometry.
 
 :class:`~jpeg_tpu_torch.parallel.pipeline.BatchedCorpusDecoder` writes each
 frame's int16 coefficient planes into the next free slot of its geometry's
@@ -20,11 +20,21 @@ has slots, and is given up at the end of a call that holds none. A frame
 whose slot the buffer does not have yet keeps its own copy of its planes,
 which :meth:`Staging.bucket` moves into the grown buffer. One call at a
 time: slots belong to the call in progress.
+
+The RGB comes down the same way, by DMA into a page-locked
+``[frames, height, width, 3]`` u8 buffer of its geometry
+(:meth:`Staging.results`), whose views are the call's results. The caller
+owns them for as long as it holds them, so a result buffer is reused only
+once nothing refers to it any more. While it is still held (a caller that
+keeps one call's results through the next) a second is made; while both
+are held, a call's RGB goes to fresh pageable memory. Result buffers are
+given up like the slots.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import weakref
 
@@ -36,6 +46,10 @@ from jpeg_tpu_torch.ops.fused_plane import padded_plane_shapes
 # cudaHostRegisterPortable: page-locked for every card's context, as a
 # mesh's data shards upload from one buffer to several cards.
 _PORTABLE = 1
+
+# Page-locked result buffers a geometry: the call's, and the one a caller
+# still holds from the call before.
+RESULT_BUFFERS = 2
 
 
 def page_lock(array: np.ndarray, device: torch.device):
@@ -81,13 +95,38 @@ class _Buffer:
         self.base = self.planes = None
 
 
+class _Results:
+    """One geometry's RGB: a [capacity, height, width, 3] u8 allocation."""
+
+    def __init__(self, geom, capacity: int, device: torch.device):
+        self.array = np.empty((capacity, geom.height, geom.width, 3), np.uint8)
+        self.capacity = capacity
+        self._unlock = page_lock(self.array, device)
+        self.pinned = self._unlock is not None
+        self._own_refs = sys.getrefcount(self.array)
+
+    def held(self) -> bool:
+        """Whether anything but this buffer refers to its array: every
+        result, every view of one and every tensor made from one does."""
+        return sys.getrefcount(self.array) > self._own_refs
+
+    def release(self) -> None:
+        """Unlock the pages and drop the array; a caller that still holds
+        results keeps them, pageable."""
+        if self._unlock is not None:
+            self._unlock()
+        self.array = None
+
+
 class Staging:
-    """The per-geometry buffers of one decoder (``device``: the card K1's
-    input goes to, whose runtime page-locks them)."""
+    """The per-geometry buffers of one decoder, K1's input slots and the
+    RGB results (``device``: the card K1 runs on, whose runtime page-locks
+    them)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.buffers: dict = {}  # geometry -> _Buffer
+        self.rgb: dict = {}      # geometry -> [_Results], at most RESULT_BUFFERS
         self._taken: dict = {}   # geometry -> slots taken in this call
         self._lock = threading.Lock()
 
@@ -133,12 +172,40 @@ class Staging:
         self.buffers[geom] = new
         return new, copied
 
+    def results(self, geom, n: int) -> tuple[np.ndarray, bool]:
+        """An ``[n, height, width, 3]`` u8 array for this call's RGB of
+        ``geom``, one row a slot, and whether it is page-locked; once a call
+        and geometry, on the caller's thread. A buffer of the geometry that
+        nothing refers to any more is reused, grown to ``n`` where it is
+        smaller; while every buffer is held a new one is made, up to
+        ``RESULT_BUFFERS``, and past them the array is fresh pageable
+        memory."""
+        pool = self.rgb.setdefault(geom, [])
+        buf = max((b for b in pool if not b.held()), default=None,
+                  key=lambda b: b.capacity)
+        if buf is not None and buf.capacity < n:
+            pool.remove(buf)
+            buf.release()
+            buf = None
+        if buf is None and len(pool) < RESULT_BUFFERS:
+            buf = _Results(geom, n, self.device)
+            pool.append(buf)
+        if buf is None:
+            return np.empty((n, geom.height, geom.width, 3), np.uint8), False
+        return buf.array[:n], buf.pinned
+
     def end(self, geoms) -> None:
         """End a call: give up the buffers of geometries it did not hold."""
         for geom in [g for g in self.buffers if g not in geoms]:
             self.buffers.pop(geom).release()
+        for geom in [g for g in self.rgb if g not in geoms]:
+            for buf in self.rgb.pop(geom):
+                buf.release()
 
     def close(self) -> None:
         for buf in self.buffers.values():
             buf.release()
-        self.buffers = {}
+        for pool in self.rgb.values():
+            for buf in pool:
+                buf.release()
+        self.buffers, self.rgb = {}, {}

@@ -171,6 +171,64 @@ def test_staged_mesh_chunks_are_runs_of_slots():
     bd.close()
 
 
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_result_buffers_interleaved_geometries(mixed, hybrid):
+    """The shuffled mixed corpus: each K1 frame's RGB is a view of its
+    geometry's result buffer (one a geometry while the caller drops each
+    call's results, a second beside it while it keeps them), the compat
+    items' images and the error records are their own, and a call without
+    a geometry gives its result buffers up, as it does its staging."""
+    items, kinds = mixed
+    order = np.random.default_rng(11).permutation(len(items))
+    items, kinds = [items[j] for j in order], [kinds[j] for j in order]
+    geom_of = {j: dec.PipelineGeometry.of(parse_jpeg(d))
+               for j, (d, k) in enumerate(zip(items, kinds)) if k == "k1"}
+    bd = BatchedCorpusDecoder(workers=2, hybrid_device=hybrid, device_batch=2,
+                              device="cpu")
+    kept = None
+    for call in range(3):
+        res = bd.decode_all(items)
+        _check(res, items, kinds, fast_k1=True)
+        assert set(bd._staging.rgb) == set(geom_of.values())
+        assert all(len(p) == (2 if call == 2 else 1)
+                   for p in bd._staging.rgb.values())
+        for j, r in enumerate(res):
+            bufs = bd._staging.rgb.get(geom_of.get(j), [])
+            assert (any(np.shares_memory(r.rgb, b.array) for b in bufs)
+                    == (j in geom_of)), (j, kinds[j])
+        if call == 1:
+            kept = res  # held through the third call
+        del res, r
+    assert kept is not None and bd.pinned_rgb_frames == 0
+    gray = [j for j, g in geom_of.items() if g.color_model == "gray"]
+    _check(bd.decode_all([items[j] for j in gray]), [items[j] for j in gray],
+           ["k1"] * len(gray), fast_k1=True)
+    assert set(bd._staging.rgb) == {geom_of[gray[0]]}
+    bd.close()
+    assert bd._staging.rgb == {}
+    _check(kept, items, kinds, fast_k1=True)
+
+
+def test_mesh_chunks_come_down_into_one_result_buffer():
+    """Under a mesh of 3, a bucket of 13 frames runs as 12 data-sharded
+    frames and 1 unsharded, each into its rows of the bucket's one result
+    array."""
+    items = [encode_rgb(synthetic_image(96, 64, seed=i), quality=85,
+                        restart_interval_mcus=3) for i in range(13)]
+    mesh = make_mesh(n_data=3, devices=["cpu"] * 3)
+    bd = BatchedCorpusDecoder(workers=2, device="cpu", mesh=mesh)
+    for _ in range(2):
+        res = bd.decode_all(items)
+        ((buf,),) = bd._staging.rgb.values()
+        assert buf.capacity == 13
+        for r, data in zip(res, items):
+            assert np.shares_memory(r.rgb, buf.array)
+            np.testing.assert_array_equal(
+                r.rgb, decode_bytes(data, path="fast", device="cpu"))
+        del res, r
+    bd.close()
+
+
 def test_worker_copies_progressive_planes():
     """Two progressive frames of one geometry through one worker thread:
     each result is its own frame (the worker copies the runtime's scratch

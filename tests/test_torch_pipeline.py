@@ -7,6 +7,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from jpeg_tpu.io.corpus import synthetic_image
 from jpeg_tpu.models.decoder import decode_bytes as ref_decode_bytes
@@ -334,3 +335,105 @@ def test_off_slice_streams_raise():
         assert got.dtype == want.dtype == np.uint16
         diff = np.abs(got.astype(int) - want.astype(int))
         assert got.shape == want.shape and diff.max() <= 1
+
+
+def _pool(dec):
+    """The decoder's result buffers of its one geometry."""
+    (pool,) = dec._staging.rgb.values()
+    return pool
+
+
+def _in_pool(results, pool) -> list[bool]:
+    return [any(np.shares_memory(r.rgb, b.array) for b in pool)
+            for r in results]
+
+
+def test_held_results_survive_later_calls():
+    """A caller that keeps every call's results: calls 0 and 1 come down
+    into two result buffers, calls 2 to 4 into fresh memory (both buffers
+    held), so no more than two buffers exist and every kept array is
+    unchanged, byte for byte, after the later calls."""
+    corpus = _corpus(15)
+    calls = [corpus[3 * c : 3 * c + 3] for c in range(5)]
+    dec = BatchedCorpusDecoder(workers=2, device="cpu")
+    kept, copies = [], []
+    for c, items in enumerate(calls):
+        got = dec.decode_all(items)
+        kept.append(got)
+        copies.append([r.rgb.copy() for r in got])
+        pool = _pool(dec)
+        assert len(pool) == min(c + 1, 2)
+        assert _in_pool(got, pool) == [c < 2] * len(items)
+        assert all(b.held() for b in pool)
+    for items, got, want in zip(calls, kept, copies):
+        for r, data, w in zip(got, items, want):
+            np.testing.assert_array_equal(r.rgb, w)
+            np.testing.assert_array_equal(r.rgb, _fast(data))
+    assert dec.pinned_rgb_frames == 0  # no CUDA device: unpinned buffers
+    dec.close()
+    assert dec._staging.rgb == {}
+    for got, want in zip(kept, copies):  # still the caller's after close
+        for r, w in zip(got, want):
+            np.testing.assert_array_equal(r.rgb, w)
+
+
+def test_result_buffer_reused_once_results_dropped():
+    """One buffer while the caller drops each call's results (the
+    benchmark's loop), two while it keeps one call's results through the
+    next (the CLI's loop, which then alternates between them), and a free
+    buffer too small for a call is replaced by one of the call's size. A
+    view of a result, or a tensor made from one, holds the buffer too."""
+    corpus = _corpus(17)
+    dec = BatchedCorpusDecoder(workers=2, device="cpu")
+    got = dec.decode_all(corpus[:3])
+    (first,) = _pool(dec)
+    del got
+    assert not first.held()
+    for items in (corpus[3:6], corpus[6:9]):
+        got = dec.decode_all(items)
+        assert _pool(dec) == [first] and _in_pool(got, [first]) == [True] * 3
+        del got
+    held = dec.decode_all(corpus[9:11])
+    corner = torch.from_numpy(held[1].rgb[:4, :4])  # outlives the results
+    del held
+    assert first.held()
+    got = dec.decode_all(corpus[11:13])  # first still held: a second buffer
+    pool = _pool(dec)
+    assert len(pool) == 2 and pool[0] is first
+    assert _in_pool(got, [pool[1]]) == [True] * 2
+    del corner
+    # the second is held by `got`; first is free, but too small for 4
+    bigger = dec.decode_all(corpus[13:17])
+    pool = _pool(dec)
+    assert len(pool) == 2 and first not in pool and first.array is None
+    assert [b.capacity for b in pool] == [2, 4]
+    assert _in_pool(bigger, [pool[1]]) == [True] * 4
+    for r, data in zip(got + bigger, corpus[11:17]):
+        np.testing.assert_array_equal(r.rgb, _fast(data))
+    dec.close()
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_pooled_results_equal_host_route(hybrid):
+    """Results through reused buffers, with one call's results kept
+    through the next, equal the host-only route's on a decoder that never
+    reuses one (a fresh decoder a call), byte for byte."""
+    corpus = _corpus(24)
+    dec = BatchedCorpusDecoder(workers=2, hybrid_device=hybrid,
+                               device_batch=2, device="cpu")
+    prev = None
+    for items in (corpus[:12], corpus[12:], corpus[:12]):
+        got = dec.decode_all(items)
+        ref = BatchedCorpusDecoder(workers=2, device="cpu")
+        want = ref.decode_all(items)
+        ref.close()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.rgb, w.rgb)
+        if prev is not None:  # the call before, held through this one
+            for g, w in zip(*prev):
+                np.testing.assert_array_equal(g.rgb, w.rgb)
+        prev = (got, want)
+    if hybrid:
+        assert dec.device_frames > 0
+    assert len(_pool(dec)) == 2
+    dec.close()

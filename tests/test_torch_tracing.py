@@ -147,6 +147,25 @@ def test_profiled_warm_decode_counts_its_staging():
     dec.close()
 
 
+def test_profiled_decode_counts_its_result_download():
+    """``decode.crop_d2h`` counts the bytes that came down and those that
+    went into page-locked memory (none without a card); ``decode.call``
+    counts the frames whose RGB did (``pinned_rgb_frames``)."""
+    items, dec = _corpus(24), _decoder()
+    dec.decode_all(items)
+    before = profiling.recorded_calls()
+    with torch.profiler.profile(activities=CPU):
+        results = dec.decode_all(items)
+    (call,) = _new_calls(before)
+    spans = profiling.recorded_spans([call.id])
+    (root,) = [s for s in spans if s.parent == 0]
+    assert root.counts["pinned_rgb_frames"] == dec.pinned_rgb_frames == 0
+    (crop,) = [s for s in spans if s.name == "decode.crop_d2h"]
+    assert crop.counts == {"bytes": 24 * 64 * 96 * 3, "pinned_bytes": 0}
+    assert sum(r.rgb.nbytes for r in results) == crop.counts["bytes"]
+    dec.close()
+
+
 def test_profiled_encode_records_its_phases():
     img = synthetic_image(96, 64, 2)
     before = profiling.recorded_calls()
