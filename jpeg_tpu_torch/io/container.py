@@ -25,7 +25,8 @@ import dataclasses
 
 import numpy as np
 
-from jpeg_tpu_torch.entropy.tables import HuffmanTable, empty_table
+from jpeg_tpu_torch.entropy.tables import HuffmanTable, empty_table, shared_table
+from jpeg_tpu_torch.utils import profiling
 
 # Marker bytes (second byte after 0xFF).
 SOI = 0xD8
@@ -261,6 +262,15 @@ def parse_jpeg(data: bytes | np.ndarray) -> DecodePlan:
 
     Parity: reference ``JPEGImage::parse`` (``src/jpeg/mod.rs:202-465``); like
     the reference it decodes the first scan only (single-scan baseline).
+
+    The plan's Huffman tables are shared (``entropy.tables.shared_table``):
+    each is the plan's own :class:`HuffmanTable` object, but its arrays are
+    read-only and are those of every other plan whose DHT carried the same
+    bytes, built once and kept in a process-wide cache of at most 64 tables
+    (8.1 MiB); the unused slots share one all-invalid table. Inside a
+    recorded span (``utils.profiling``, the ``decode.parse`` span of
+    ``BatchedCorpusDecoder``) the parse counts the DHT tables it read,
+    ``tables``, and those the cache already held, ``tables_reused``.
     """
     vec = np.frombuffer(bytes(data), dtype=np.uint8) if not isinstance(data, np.ndarray) else data
     n = len(vec)
@@ -365,7 +375,9 @@ def parse_jpeg(data: bytes | np.ndarray) -> DecodePlan:
                     # read >16 magnitude bits (libjpeg rejects these too).
                     raise JPEGError(
                         f"invalid DC Huffman symbol {int(values.max())} > 16")
-                table = HuffmanTable.from_bits_values(bits, values)
+                table, reused = shared_table(bits, values)
+                profiling.count("tables", 1)
+                profiling.count("tables_reused", int(reused))
                 (dc_tables if table_class == 0 else ac_tables)[dest] = table
         elif marker == DRI:
             # JPEG B.2.4.4 — reference panics here (src/jpeg/mod.rs:424-428).

@@ -21,7 +21,8 @@ the decoder's device.
 With ``hybrid_device=True`` a device thread also claims batches from the
 back of the work list and decodes their entropy with K3
 (``entropy/device_huffman.py``: ``prepare_lane_batch``, then
-``decode_prepared_batch``) while the host threads drain the front. Only three things send a claimed image to the
+``decode_prepared_batch``) while the host threads drain the front; its
+first claim is taken before they start. Only three things send a claimed image to the
 host route: a per-lane error bit, a plan the device route does not take
 (:meth:`BatchedCorpusDecoder._device_eligible`: progressive, arithmetic,
 RGB-direct, CMYK and YCCK plans among them), and a batch whose Huffman
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 import threading
 from collections import deque
@@ -182,6 +184,13 @@ class BatchedCorpusDecoder:
     :meth:`decode_all`, the route its entropy took: ``"host"``,
     ``"device"`` (K3) or ``"fallback"`` (claimed by the device thread, then
     decoded on the host).
+
+    Under a ``torch.profiler`` session a call records its spans
+    (:mod:`jpeg_tpu_torch.utils.profiling`); each frame's ``decode.parse``
+    counts the DHT tables its parse read (``tables``) and those the
+    process-wide table cache already held (``tables_reused``: every
+    frame's tables are shared, read-only, with every other frame that
+    carries the same DHT bytes; see ``io.container.parse_jpeg``).
 
     One :meth:`decode_all` at a time on a decoder: the staging slots and
     ``routes`` belong to the call in progress, and a second call made
@@ -361,13 +370,15 @@ class BatchedCorpusDecoder:
             to_host(host)
             return keep, plans
 
-        def device_side():
+        def device_side(first):
             on_cuda = self.device.type == "cuda"
             stream = torch.cuda.Stream(self.device) if on_cuda else None
             ctx = torch.cuda.stream(stream) if on_cuda else contextlib.nullcontext()
             pending = None
+            claims = itertools.chain([first] if first else [],
+                                     iter(pop_back_batch, None))
             with ctx, profiling.adopt(frame):
-                while (idxs := pop_back_batch()) is not None:
+                for idxs in claims:
                     with span("decode.claim") as sp:
                         sp.add("frames", len(idxs))
                         idxs, plans = claim_plans(idxs)
@@ -395,7 +406,10 @@ class BatchedCorpusDecoder:
                     finalize(pending)
 
         pool, dev_pool = self._pools()
-        dev_fut = dev_pool.submit(device_side)
+        # The device thread's first claim is taken before any host worker
+        # starts: a host route whose parse reuses its tables can drain a
+        # small call before that thread is scheduled.
+        dev_fut = dev_pool.submit(device_side, pop_back_batch())
         host_futs = [pool.submit(host_worker) for _ in range(self.workers)]
         for f in host_futs:
             f.result()

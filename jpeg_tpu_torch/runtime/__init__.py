@@ -60,6 +60,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from jpeg_tpu_torch.entropy.tables import SharedCache, frozen, table_key
 from jpeg_tpu_torch.utils import build
 from jpeg_tpu_torch.utils.build import GXX_FLAGS, BuildError, load_library
 
@@ -302,10 +303,27 @@ def _p(arr: np.ndarray, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def _packed_luts(tables) -> np.ndarray:
-    """[4, 65536] u16 packed (value << 8) | length per table slot."""
+# 32 packed slot sets of 512 KiB each ([4, 65536] u16): 16 MiB at most.
+PACKED_CACHE_SIZE = 32
+_PACKED = SharedCache(PACKED_CACHE_SIZE)
+
+
+def _pack(tables) -> np.ndarray:
     return np.ascontiguousarray(np.stack(
         [(t.lut_value.astype(np.uint16) << 8) | t.lut_length for t in tables]))
+
+
+def _packed_luts(tables) -> np.ndarray:
+    """[4, 65536] u16 packed (value << 8) | length per table slot.
+
+    Shared and read-only where every slot's table is one the table cache
+    handed out (``entropy.tables.table_key``): kept per the slots' DHT
+    contents, at most :data:`PACKED_CACHE_SIZE` = 32 sets, 16 MiB, least
+    recently used dropped. Any other table set is packed afresh."""
+    keys = tuple(table_key(t) for t in tables)
+    if None in keys:
+        return _pack(tables)
+    return _PACKED.get(keys, lambda: frozen(_pack(tables)))[0]
 
 
 def _plane_args(plan):

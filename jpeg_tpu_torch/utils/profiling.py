@@ -247,6 +247,15 @@ def span(name: str):
     return _Open(name, top.call, top.id, top.mirror)
 
 
+def count(key: str, value) -> None:
+    """Add ``value`` to count ``key`` of this thread's innermost open span;
+    nothing where none is recorded (for code that opens no span itself,
+    such as ``parse_jpeg`` inside ``decode.parse``)."""
+    top = getattr(_local, "top", None)
+    if isinstance(top, _Open):
+        top.add(key, value)
+
+
 def current():
     """This thread's innermost open span, for :func:`adopt` on another
     thread; None where no call is recorded."""

@@ -11,6 +11,7 @@ the card with
 from __future__ import annotations
 
 import json
+import os
 import threading
 import types
 
@@ -21,6 +22,7 @@ from jpeg_tpu_torch import BatchedCorpusDecoder, encode_rgb, encode_rgb_device
 from jpeg_tpu_torch.io.corpus import synthetic_image
 from jpeg_tpu_torch.utils import profiling
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = [torch.profiler.ProfilerActivity.CPU]
 DECODE_SPANS = {"decode.call", "decode.entropy", "decode.parse",
                 "decode.host_entropy", "decode.claim", "decode.k3_prepare",
@@ -163,6 +165,38 @@ def test_profiled_decode_counts_its_result_download():
     (crop,) = [s for s in spans if s.name == "decode.crop_d2h"]
     assert crop.counts == {"bytes": 24 * 64 * 96 * 3, "pinned_bytes": 0}
     assert sum(r.rgb.nbytes for r in results) == crop.counts["bytes"]
+    dec.close()
+
+
+def test_profiled_decode_counts_its_shared_tables():
+    """Each ``decode.parse`` counts the DHT tables it read (``tables``) and
+    those the table cache already held (``tables_reused``): from an empty
+    cache every distinct table is built at least once, in the next call
+    none is; the benchmark's ``table_reuse_share.decode`` reads the
+    second call's share."""
+    from benchmark.spec import reader
+    from jpeg_tpu_torch.entropy import tables
+
+    items, dec = _corpus(24), _decoder()
+    shares = []
+    tables.TABLES.clear()
+    for _ in range(2):
+        before = profiling.recorded_calls()
+        with torch.profiler.profile(activities=CPU):
+            assert all(r.ok for r in dec.decode_all(items))
+        (call,) = _new_calls(before)
+        spans = profiling.recorded_spans([call.id])
+        parse = [s for s in spans if s.name == "decode.parse"]
+        assert parse and all(s.counts["tables"] == 4 for s in parse)
+        (root,) = [s for s in spans if s.parent == 0]
+        window = (call.to_unix_ns(root.start_ns) * 1e-9,
+                  call.to_unix_ns(root.end_ns) * 1e-9)
+        ctx = types.SimpleNamespace(entry="decode_all",
+                                    trace=types.SimpleNamespace(window=window))
+        shares.append(reader(ROOT, "table_reuse_share.decode")(ctx))
+        reused = sum(s.counts["tables_reused"] for s in parse)
+        assert reused <= 4 * len(parse) - (4 if len(shares) == 1 else 0)
+    assert shares[0] < 100.0 == shares[1]
     dec.close()
 
 
