@@ -3,13 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the C++ entropy runtime (profile-guided) and entropy encoder (the
-port's own copies of the JAX package's C++ sources,
-``jpeg_tpu_torch/runtime/native/``), the six CUDA libraries (K1-K7, K1a
-with K1), the K3 pass-1 ablation's library, two K1 cell variants and the
-host tools' programs (a plain and two AddressSanitizer builds of the C++
-sources, the four microbenchmarks, the libjpeg harness where
-``jpeglib.h`` is found) from this checkout (all at once), checks
+Builds the C++ entropy runtime and entropy encoder (the port's own copies
+of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``), the
+six CUDA libraries (K1-K7, K1a with K1), the K3 pass-1 ablation's library,
+two K1 cell variants and the host tools' programs (two AddressSanitizer
+builds of the C++ sources, the four microbenchmarks, the libjpeg harness
+where ``jpeglib.h`` is found) from this checkout (all at once), checks
 each kernel against its plain PyTorch version at the shapes its path gives
 it (K1, its approx tier K1a and K2 on every sampling they
 take, K3 and K4 on corrupt streams and eight 4K frames, K7 on a 4K frame
@@ -147,26 +146,20 @@ and (b), on the 2,025-lane stream, (a) equal to the shipping pass 1's
 records; and two K1 cells of the sweep at 8 4K frames, K1 and K1a bit for
 bit with the shipping cell.
 
-Then the host C++ runtime's build and tuning (``host_runtime_phase``; host
-numbers, printed with the host's CPU model and the card): the loaded
-runtime is the profile-guided build (``runtime.pgo_status()``, with the
-seconds of its instrumented build, training and rebuild); its A/B against
-a plain build (``tools/ab_host_entropy.py``, five interleaved rounds on the
-4K restart-per-row fixture, medians, [min, max] and a verdict, not held);
-the chunk tuner trialled to its pick on a 4K frame without restarts, each
-candidate's planes bit for bit with the sequential decode; ``abench`` in
-all five modes; the four C++ microbenchmarks on the dumped 4K streams;
-libjpeg's coefficients of the port's 4K SOF9 frame against the port's
-where ``jpeglib.h`` is found (its absence printed); and the
-AddressSanitizer sweep of the runtime and encoder over fuzz seeds 0-2,
-failing on any report.
+Then the host C++ runtime and its tools (``host_runtime_phase``; host
+numbers, printed with the host's CPU model and the card): the speculative
+planes of a 4K frame without restarts at ``{4, 6, 8} x threads`` chunks
+bit for bit with the sequential decode; ``abench`` in all five modes; the
+four C++ microbenchmarks on the dumped 4K streams; libjpeg's coefficients
+of the port's 4K SOF9 frame against the port's where ``jpeglib.h`` is found
+(its absence printed); and the AddressSanitizer sweep of the runtime and
+encoder over fuzz seeds 0-2, failing on any report.
 
 Then the port's bench (``bench_phase``): ``jpeg_tpu_torch.bench.main``
 with 32 headline frames and one repeat, its JSON line printed among these
 lines; its keys, rates, fallback count, card and kernel launches (K1, K1a,
-K2, K3, K5) are checked, and ``pgo`` is on and ``spec_chunks`` the pick
-of a chunk tuner that starts empty for the bench (on a file of its own),
-the fastest candidate by the bench's own trials.
+K2, K3, K5) are checked, and ``spec_chunks`` is ``4 x cores`` and ``pgo``
+``off``.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after. The script exits non-zero at the first failed check, without a
@@ -291,10 +284,8 @@ REFUSED_BY_SANITIZER = ("========= Error: Device not supported. Please refer "
                         "to the \"Supported Devices\" section of the "
                         "sanitizer documentation")
 SWEEP_SHAPES = ((128, 128), (256, 256))
-# The host_runtime phase: interleaved rounds of the profile-guided build's
-# A/B, the microbenchmarks' repetitions and QM decisions, the ASan sweep's
-# fuzz seeds (inclusive).
-HOST_AB_ROUNDS = 5
+# The host_runtime phase: the microbenchmarks' repetitions and QM
+# decisions, the ASan sweep's fuzz seeds (inclusive).
 MICRO_REPS = 3
 MICRO_DECISIONS = 4_000_000
 ASAN_SEEDS = (0, 2)
@@ -517,12 +508,7 @@ def run() -> list[dict]:
     from jpeg_tpu_torch.ops import fused_plane as k1
     from jpeg_tpu_torch.ops import idct_only as k56
     from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
-    from jpeg_tpu_torch.tools import (
-        ab_host_entropy,
-        ablate_kernel,
-        arith_ref,
-        microbench,
-    )
+    from jpeg_tpu_torch.tools import ablate_kernel, arith_ref, microbench
     from jpeg_tpu_torch.utils.build import build_library
 
     dev = torch.device("cuda")
@@ -555,8 +541,6 @@ def run() -> list[dict]:
               *((f"K1 cell {t}x{n} variant (nvcc sm_90a)",
                  lambda cell=(t, n): k1.load_kernel(cell))
                 for t, n in SWEEP_SHAPES),
-              ("C++ runtime, plain A/B arm (g++)",
-               lambda: ab_host_entropy.build_variant("plain", "")),
               *((f"C++ {name} (g++, AddressSanitizer)",
                  lambda b=(name, cmd, srcs, hdrs): build_library(*b))
                 for name, cmd, srcs, hdrs in runtime.ASAN_BUILDS),
@@ -872,10 +856,9 @@ def run() -> list[dict]:
     tools = tools_phase(dev, card)
     print(f"tools phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 13e. The host C++ runtime's build and tuning, and the host tools: the
-    #      profile-guided build and its A/B, the chunk tuner's ladder, the
-    #      quick A/B modes, the C++ microbenchmarks, libjpeg's QM-coder
-    #      ground truth and the AddressSanitizer sweep.
+    # 13e. The host C++ runtime and the host tools: speculative planes at
+    #      three chunk counts, the quick A/B modes, the C++ microbenchmarks,
+    #      libjpeg's QM-coder ground truth and the AddressSanitizer sweep.
     t0 = time.perf_counter()
     host_runtime_phase(card)
     print(f"host_runtime phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2486,79 +2469,32 @@ def host_cpu() -> str:
     return f"{model}, {os.cpu_count()} cores"
 
 
-def host_runtime_phase(card: str) -> dict:
-    """The host C++ runtime's build and tuning and the port's host tools,
-    on the card's host (host numbers, printed with the CPU model):
+def host_runtime_phase(card: str) -> None:
+    """The host C++ runtime and the port's host tools, on the card's host
+    (host numbers, printed with the CPU model):
 
-    - the loaded runtime is the profile-guided build (``pgo_status()`` on),
-      with the seconds of its instrumented build, training and rebuild;
-    - ``ab_host_entropy``: the shipping (profile-guided) build against a
-      plain one, HOST_AB_ROUNDS interleaved rounds on the 4K restart-per-row
-      fixture, medians and [min, max], a verdict printed, not held;
-    - the chunk tuner (``runtime.SpecTuner``, its own file) trialled to its
-      pick on the 4K frame without restarts, each candidate's best time
-      printed, and the planes at every candidate bit for bit with the
-      segment-sequential decode (``speculative=False``);
+    - the speculative planes of the 4K frame without restarts at ``{4, 6,
+      8} x n_threads`` chunks (explicit ``n_chunks``), each bit for bit
+      with the segment-sequential decode (``speculative=False``);
     - ``abench`` in all five modes, once;
     - the four C++ microbenchmarks on the dumped 4K streams (MICRO_REPS);
     - libjpeg's coefficients of the port's 4K SOF9 frame equal to the
       port's, where ``jpeglib.h`` is found (its absence printed);
-    - the AddressSanitizer sweep over fuzz seeds ASAN_SEEDS: no report.
-
-    Returns the A/B's medians and the tuner's snapshot."""
+    - the AddressSanitizer sweep over fuzz seeds ASAN_SEEDS: no report."""
     import tempfile
 
     from jpeg_tpu_torch import bench, runtime
     from jpeg_tpu_torch.io.container import parse_jpeg
-    from jpeg_tpu_torch.tools import (
-        ab_host_entropy,
-        abench,
-        arith_ref,
-        asan_sweep,
-        microbench,
-    )
+    from jpeg_tpu_torch.tools import abench, arith_ref, asan_sweep, microbench
 
     host = host_cpu()
     print(f"host_runtime: host {host}, card {card}", flush=True)
-    runtime.load()
-    info = runtime.build_info() or {}
-    check(runtime.pgo_status() == "on",
-          f"the loaded C++ runtime is the profile-guided build (pgo_status "
-          f"{runtime.pgo_status()!r}; seconds of its instrumented build "
-          f"{info.get('instrumented_s')}, training {info.get('train_s')}, "
-          f"rebuild {info.get('final_s')})")
-
-    t0 = time.perf_counter()
-    plan = parse_jpeg(read(FRAMES_4K[0]))
-    res = ab_host_entropy.ab([("plain", "")], plan, HOST_AB_ROUNDS,
-                             out=lambda m: print(f"pgo A/B ({host}): {m}",
-                                                 flush=True))
-    for kind in ("single", "corpus"):
-        print(f"pgo A/B ({host}; {card}): "
-              f"{ab_host_entropy.verdict(res, 'shipping', 'plain', kind)} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-
     img = synthetic_image(3840, 2160, 0)
     nr = parse_jpeg(bench.norestart_stream(img))
     want = [p.copy() for p in runtime.native_decode_planes(
         nr, speculative=False, reuse_buffer=False)]
     n_threads = os.cpu_count() or 1
-    with tempfile.TemporaryDirectory() as tmp:
-        tuner = runtime.SpecTuner(os.path.join(tmp, "spec_tuner.json"),
-                                  lambda: "smoke")
-        key = str(tuner.key(nr))
-        calls = 0
-        while tuner.snapshot().get(key, {}).get("chosen") is None:
-            k = tuner.chunks(nr, n_threads)
-            t1 = time.perf_counter()
-            runtime.native_decode_planes(nr, n_chunks=k, speculative=True)
-            tuner.feedback(nr, k, time.perf_counter() - t1)
-            calls += 1
-        snap = tuner.snapshot()[key]
-    print(f"chunk tuner ({host}): 4K without restarts, {n_threads} threads, "
-          f"candidates {list(snap['best_ms'])}, best ms {snap['best_ms']}, "
-          f"pick {snap['chosen']} after {calls} calls", flush=True)
-    for k in map(int, snap["best_ms"]):
+    for k in (4 * n_threads, 6 * n_threads, 8 * n_threads):
         got = runtime.native_decode_planes(nr, n_chunks=k, speculative=True)
         check(all(np.array_equal(g, w) for g, w in zip(got, want)),
               f"speculative planes at {k} chunks == the sequential decode's")
@@ -2589,8 +2525,6 @@ def host_runtime_phase(card: str) -> dict:
     check(summary["ok"], f"ASan sweep, fuzz seeds {ASAN_SEEDS[0]}-"
           f"{ASAN_SEEDS[1]}: {json.dumps(summary)} "
           f"({time.perf_counter() - t0:.1f} s)")
-    return {"ab": {a: {k: r[f"{k}_median"] for k in ("single", "corpus")}
-                   for a, r in res.items()}, "tuner": snap}
 
 
 def bench_phase(card: str) -> dict:
@@ -2598,15 +2532,9 @@ def bench_phase(card: str) -> dict:
     frames, one repeat), its result line printed among these: its keys are
     ``bench.KEYS``, every rate finite and > 0, the headline corpus decoded
     with no fallback and some frames by K3, the card named as here, and
-    K1, K1a, K2, K3 and K5 launched. The runtime's chunk tuner is swapped
-    for an empty one on a file of its own for the run: earlier phases fed
-    the process's tuner on the same frame class and persisted its pick to
-    ``build/spec_tuner.json``, so the bench's ``spec_chunks`` would be
-    theirs. ``spec_chunks`` must be the fastest candidate by the bench's
-    own trials. Returns the launches by kernel."""
-    import tempfile
-
-    from jpeg_tpu_torch import bench, runtime
+    K1, K1a, K2, K3 and K5 launched, ``spec_chunks`` ``4 x cores`` and
+    ``pgo`` ``off``. Returns the launches by kernel."""
+    from jpeg_tpu_torch import bench
     from jpeg_tpu_torch.entropy import device_huffman as k3
     from jpeg_tpu_torch.ops import fused_encode as k2
     from jpeg_tpu_torch.ops import fused_plane as k1
@@ -2616,15 +2544,7 @@ def bench_phase(card: str) -> dict:
                 "K2": k2.LAUNCHES, "K3": k3.LAUNCHES, "K5": k56.LAUNCHES}
     for c in counters.values():
         c.reset()
-    saved = runtime._TUNER
-    with tempfile.TemporaryDirectory() as tmp:
-        runtime._TUNER = runtime.SpecTuner(
-            os.path.join(tmp, "spec_tuner.json"), runtime._library_file)
-        try:
-            result = bench.main(["--frames", str(BENCH_FRAMES),
-                                 "--repeats", "1"])
-        finally:
-            runtime._TUNER = saved
+    result = bench.main(["--frames", str(BENCH_FRAMES), "--repeats", "1"])
     launches = {name: c.value for name, c in counters.items()}
     detail = result["detail"]
     check(set(result) == {"metric", "value", "unit", "detail"}
@@ -2644,16 +2564,10 @@ def bench_phase(card: str) -> dict:
           f"by K3, {detail['e2e_corpus_fallback_frames']} fallbacks; "
           f"e2e_hybrid {detail['e2e_hybrid_fps']:.2f} frames/s, "
           f"{detail['e2e_hybrid_device_frames']} by K3")
-    tuned = detail["spec_tuner"]
-    picks = [st for st in tuned.values() if st["chosen"] is not None]
-    check(detail["pgo"] == "on" and detail["spec_chunks"] is not None
-          and any(st["chosen"] == detail["spec_chunks"] for st in picks)
-          and all(None not in st["best_ms"].values()
-                  and st["best_ms"][str(st["chosen"])]
-                  == min(st["best_ms"].values()) for st in picks),
-          f"bench: pgo {detail['pgo']!r}, spec_chunks "
-          f"{detail['spec_chunks']}, the fastest candidate by the bench's "
-          f"own trials (spec_tuner {tuned})")
+    cores = os.cpu_count() or 1
+    check(detail["spec_chunks"] == 4 * cores and detail["pgo"] == "off",
+          f"bench: spec_chunks {detail['spec_chunks']} == 4 x {cores} cores, "
+          f"pgo {detail['pgo']!r}")
     check(detail["card"] == card and detail["device"] != "cpu",
           f"bench: card {detail['card']!r}, device {detail['device']!r}")
     check(all(n > 0 for n in launches.values()),

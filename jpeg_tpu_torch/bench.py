@@ -27,9 +27,9 @@ the NVIDIA H100 SXM's 3.35 TB/s, over ``bench.py``'s byte counts.
 Key map (``bench.py`` key -> port route -> kernel):
 
 - ``entropy_host_fps``, ``entropy_corpus_fps``,
-  ``entropy_speculative_norestart_fps`` (``spec_chunks``: the chunk tuner's
-  pick for that frame, ``spec_tuner``: its snapshot, each candidate's best
-  trial), ``pgo`` (``runtime.pgo_status()`` of the loaded runtime),
+  ``entropy_speculative_norestart_fps`` (``spec_chunks``: its chunk
+  count, ``4 * cores``; ``spec_tuner`` ``{}`` and ``pgo`` ``"off"``, kept
+  for ``bench.py``'s keys: the runtime has no tuner and one plain build),
   ``lossless_1080p_fps``, ``arithmetic_4k_entropy_fps``,
   ``arithmetic_4k_corpus_fps``, ``progressive_4k_entropy_fps``,
   ``progressive_4k_corpus_fps`` -> ``runtime`` (C++ on the host);
@@ -371,20 +371,21 @@ def bench_host_entropy_corpus(plan, iters: int = 24):
 
 def bench_speculative(plan, iters: int = 8):
     """The threaded decode of a frame without restart markers: speculative,
-    in the chunk counts the runtime's tuner hands out (its trials first,
-    then its pick, as in ``bench.py``)."""
+    in ``4 * cores`` chunks."""
     runtime.native_decode_planes(plan)
     return (lambda: {"entropy_speculative_norestart_fps": iters / host_s(
         lambda: runtime.native_decode_planes(plan), iters)}), {}
 
 
 def spec_tuner_detail(plan) -> dict:
-    """``spec_chunks`` (the tuner's pick for ``plan``'s class, None before
-    it picks or when the frame does not decode speculatively),
-    ``spec_tuner`` (its snapshot) and ``pgo``."""
-    tuner = runtime.spec_tuner_snapshot()
-    pick = tuner.get(str(runtime.SpecTuner.key(plan)), {}).get("chosen")
-    return {"spec_chunks": pick, "spec_tuner": tuner,
+    """``spec_chunks`` (the chunk count of ``plan``'s default threaded
+    decode, ``4 * cores``, or None when it does not decode speculatively),
+    ``spec_tuner`` and ``pgo`` (``{}`` and ``"off"``: no tuner, one plain
+    build)."""
+    cores = os.cpu_count() or 1
+    return {"spec_chunks": (4 * cores if runtime.speculates(plan, cores)
+                            else None),
+            "spec_tuner": runtime.spec_tuner_snapshot(),
             "pgo": runtime.pgo_status()}
 
 
@@ -821,8 +822,7 @@ def main(argv=None) -> dict:
     plan_nr = parse_jpeg(inp.norestart_4k)
     b.rung("speculative_norestart", lambda: bench_speculative(plan_nr))
     b.detail.update(spec_tuner_detail(plan_nr))
-    log(f"speculative: chunks {b.detail['spec_chunks']}, pgo "
-        f"{b.detail['pgo']}, tuner {b.detail['spec_tuner']}")
+    log(f"speculative: chunks {b.detail['spec_chunks']}")
     b.rung("lossless", lambda: bench_lossless(parse_jpeg(inp.lossless_1080)))
     b.rung("arithmetic", lambda: bench_arithmetic(parse_jpeg(inp.arith_4k)))
     b.rung("progressive", lambda: bench_progressive(parse_jpeg(inp.prog_4k)))

@@ -32,30 +32,21 @@ packing of natural-order int16 planes (the layout K2 writes), and the
 progressive scans' DC and AC passes (``jt_encode_prog_dc`` / ``_ac``).
 
 Each library is compiled with g++ into ``jpeg_tpu_torch/build/`` at first
-use. The decode runtime is built profile-guided, as the JAX package's
-Makefile builds it: an instrumented build, trained by the child process
-``python -m jpeg_tpu_torch.tools.pgo_train``, then the ``-fprofile-use``
-rebuild; a build whose training could not run is plain, and
-:func:`pgo_status` says which loaded. The encoder is a plain build.
-``JPEG_TPU_ASAN=1`` loads AddressSanitizer builds of both instead (plain,
-under their own names; the process must preload libasan, as
-``jpeg_tpu_torch.tools.asan_sweep`` does). A missing compiler or a failed
-build raises; there is no numpy fallback on this path.
+use, as a plain build (``utils/build.py``). ``JPEG_TPU_ASAN=1`` loads
+AddressSanitizer builds of both instead (under their own names; the process
+must preload libasan, as ``jpeg_tpu_torch.tools.asan_sweep`` does). A
+missing compiler or a failed build raises; there is no numpy fallback on
+this path.
 
-Speculative decode of a scan without restart markers splits it into a
-number of chunks that :class:`SpecTuner` picks by measurement, per frame
-geometry, and persists to ``jpeg_tpu_torch/build/spec_tuner.json``
-(:func:`spec_tuner_snapshot`).
+Speculative decode of a scan without restart markers splits it into
+``4 * n_threads`` chunks unless the caller gives ``n_chunks``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import json
 import os
-import sys
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -75,7 +66,6 @@ ASAN_BUILDS = (
     ("jpegtpu_asan", ["g++", *GXX_FLAGS, *ASAN_FLAGS], [PORT_SOURCE], (SOURCE,)),
     ("jpegtpu_enc_asan", ["g++", *GXX_FLAGS, *ASAN_FLAGS], [ENC_SOURCE], ()),
 )
-SPEC_TUNER_PATH = os.path.join(build.BUILD_DIR, "spec_tuner.json")
 
 # Output buffers reused per thread (see native_decode_planes,
 # native_decode_coefficients and the progressive scan grids).
@@ -248,18 +238,9 @@ def library_name() -> str:
     return "jpegtpu_asan" if asan() else "jpegtpu"
 
 
-def pgo() -> build.PGO:
-    """The runtime's profile-guided training: the port's training child on
-    the instrumented library, hashed with the streams it reads."""
-    from jpeg_tpu_torch.tools import pgo_train
-
-    return build.PGO((sys.executable, "-m", "jpeg_tpu_torch.tools.pgo_train"),
-                     (pgo_train.__file__, *pgo_train.STREAMS))
-
-
 def load() -> ctypes.CDLL:
-    """Build (at first use) and load the C++ runtime: profile-guided, or
-    with AddressSanitizer under ``JPEG_TPU_ASAN=1``."""
+    """Build (at first use) and load the C++ runtime, or its
+    AddressSanitizer build under ``JPEG_TPU_ASAN=1``."""
     name = library_name()
     got = build.loaded(name)
     if got is not None:
@@ -268,25 +249,14 @@ def load() -> ctypes.CDLL:
         name, cmd, sources, headers = ASAN_BUILDS[0]
         return load_library(name, cmd, sources, _configure, headers=headers)
     return load_library(name, ["g++", *GXX_FLAGS], [PORT_SOURCE], _configure,
-                        headers=(SOURCE,), pgo=pgo())
+                        headers=(SOURCE,))
 
 
 def pgo_status() -> str:
-    """'on' if the loaded C++ runtime was built profile-guided, 'off' if it
-    is a plain build (its training could not run, or an ASan build),
-    'unknown' before this process loads it."""
-    got = build.loaded(library_name())
-    if got is None:
-        return "unknown"
-    info = build.build_info(library_name())
-    return info["pgo"] if info is not None else "off"
-
-
-def build_info() -> dict | None:
-    """The loaded runtime's build record: ``pgo`` and the seconds of the
-    instrumented build, the training and the rebuild (None before it is
-    loaded, or for a build that was not profile-guided)."""
-    return build.build_info(library_name())
+    """Always ``"off"``: the runtime has one plain build. Kept only for
+    ``benchmark/run.py``'s log line; it goes when a benchmark change drops
+    that line (ROADMAP.md, debt (c))."""
+    return "off"
 
 
 def native_available() -> bool:
@@ -359,119 +329,19 @@ def _plane_args(plan):
     return cached
 
 
-class SpecTuner:
-    """Measured chunk count of the speculative decode of scans without
-    restart markers: the JAX runtime's tuner (``_spec_chunks``,
-    ``_spec_feedback``, ``spec_tuner_snapshot``), the same rules.
-
-    Per (geometry, scan-size) class, the first calls trial the candidates
-    ``{4, 6, 8} x n_threads`` round-robin, two timed trials each (the
-    caller reports each call's wall time through :meth:`feedback`), then
-    lock in the fastest by its best trial. The pick persists to ``path``
-    keyed on the class, the host's core count and the loaded runtime's
-    file name, which carries its build hash: a rebuilt library invalidates
-    the picks of the old one. A pick loaded from the file is in force at
-    once, but the next calls still hand out one confirmation trial per
-    candidate, so that a snapshot carries this process's timings. A broken
-    or unwritable file degrades to trialling; it never raises."""
-
-    def __init__(self, path: str, library_key):
-        self.path = path
-        self._library_key = library_key  # () -> the loaded runtime's name
-        self._state: dict = {}
-        self._lock = threading.Lock()
-
-    @staticmethod
-    def key(plan) -> tuple:
-        return (plan.width, plan.height, len(plan.components),
-                int(len(plan.scan_data)) >> 18)
-
-    def persist_key(self, key) -> str:
-        return f"{key}|cores={os.cpu_count()}|so={self._library_key()}"
-
-    def load(self, key):
-        try:
-            with open(self.path) as f:
-                return json.load(f).get(self.persist_key(key))
-        except (OSError, ValueError, AttributeError):
-            return None
-
-    def store(self, key, chosen: int) -> None:
-        try:
-            try:
-                with open(self.path) as f:
-                    d = json.load(f)
-                if not isinstance(d, dict):
-                    d = {}
-            except (OSError, ValueError):
-                d = {}
-            d[self.persist_key(key)] = chosen
-            tmp = f"{self.path}.tmp{os.getpid()}"
-            with open(tmp, "w") as f:
-                json.dump(d, f)
-            os.replace(tmp, self.path)
-        except OSError:
-            pass  # persistence is best-effort, as in the JAX runtime
-
-    def chunks(self, plan, n_threads: int) -> int:
-        """The chunk count for this call of ``plan``'s class."""
-        with self._lock:
-            key = self.key(plan)
-            st = self._state.get(key)
-            if st is None:
-                cands = sorted({4 * n_threads, 6 * n_threads, 8 * n_threads})
-                persisted = self.load(key)
-                st = {"cands": cands, "times": {k: [] for k in cands},
-                      "chosen": persisted, "i": 0,
-                      "confirm": len(cands) if persisted is not None else 0}
-                self._state[key] = st
-            if st["chosen"] is not None:
-                if st["confirm"] > 0:
-                    st["confirm"] -= 1
-                    return st["cands"][st["confirm"] % len(st["cands"])]
-                return st["chosen"]
-            cands = st["cands"]
-            if all(len(st["times"][k]) >= 2 for k in cands):
-                st["chosen"] = min(cands, key=lambda k: min(st["times"][k]))
-                self.store(key, st["chosen"])
-                return st["chosen"]
-            k = cands[st["i"] % len(cands)]
-            st["i"] += 1
-            return k
-
-    def feedback(self, plan, k: int, dt: float) -> None:
-        """Record a call's wall time ``dt`` (s) at chunk count ``k``."""
-        with self._lock:
-            st = self._state.get(self.key(plan))
-            if st is not None and k in st["times"]:
-                st["times"][k].append(dt)
-
-    def snapshot(self) -> dict:
-        """Per class key: the chosen count and each candidate's best trial
-        (ms, None before its first)."""
-        with self._lock:
-            return {
-                str(key): {
-                    "chosen": st["chosen"],
-                    "best_ms": {str(k): (round(min(v) * 1e3, 3) if v else None)
-                                for k, v in st["times"].items()},
-                }
-                for key, st in self._state.items()
-            }
-
-
-def _library_file() -> str:
-    got = build.loaded(library_name())
-    return os.path.basename(got[1]) if got is not None else "unloaded"
-
-
-_TUNER = SpecTuner(SPEC_TUNER_PATH, _library_file)
-
-
 def spec_tuner_snapshot() -> dict:
-    """The chunk tuner's state (:meth:`SpecTuner.snapshot`), for benchmark
-    records."""
-    return _TUNER.snapshot()
+    """Always ``{}``: the chunk count has no tuner. Kept only for
+    ``benchmark/run.py``'s log line; it goes when a benchmark change drops
+    that line (ROADMAP.md, debt (c))."""
+    return {}
+
+
+def speculates(plan, n_threads: int) -> bool:
+    """Whether :func:`native_decode_planes` decodes ``plan`` speculatively
+    when its caller leaves ``speculative`` unset: a single-segment scan of
+    at least 64 KB, on more than one thread."""
+    return (len(plan.segments) == 1 and len(plan.scan_data) >= 65536
+            and n_threads > 1)
 
 
 def native_decode_planes(plan, n_threads: int | None = None,
@@ -484,10 +354,8 @@ def native_decode_planes(plan, n_threads: int | None = None,
     Restart-segmented scans decode segment-parallel. A single-segment scan
     decodes speculatively (bit-identical: a broken sync link falls back to
     sequential decode inside the library) when ``speculative`` is true, or,
-    with ``speculative=None``, when the scan holds at least 64 KB and
-    ``n_threads > 1``; in as many chunks as ``n_chunks`` says or, when it
-    is None, as :class:`SpecTuner` picks, each such call's wall time fed
-    back to the tuner (as ``jpeg_tpu.runtime.native_decode_planes`` does).
+    with ``speculative=None``, where :func:`speculates`; in ``n_chunks``
+    chunks, or ``4 * n_threads`` when it is None.
 
     With ``reuse_buffer`` (default) the planes are this thread's scratch
     buffers, overwritten by its next same-geometry call: consume or copy
@@ -513,16 +381,11 @@ def native_decode_planes(plan, n_threads: int | None = None,
     )
     data = a["data"]
     if speculative is None:
-        speculative = (len(plan.segments) == 1 and data.size >= 65536
-                       and n_threads > 1)
+        speculative = speculates(plan, n_threads)
     if speculative and len(plan.segments) == 1:
-        k = n_chunks if n_chunks else _TUNER.chunks(plan, n_threads)
-        t0 = time.perf_counter()
         err = lib.jt_decode_scan_planes_spec(
             _p(data, ctypes.c_uint8), data.size, plan.n_mcus, *common,
-            k, n_threads)
-        if n_chunks is None:
-            _TUNER.feedback(plan, k, time.perf_counter() - t0)
+            n_chunks or 4 * n_threads, n_threads)
     else:
         err = lib.jt_decode_scan_planes(
             _p(data, ctypes.c_uint8), data.size,

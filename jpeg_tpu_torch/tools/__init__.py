@@ -22,12 +22,10 @@
   fuzz's damaged cases with their ``torch.empty`` outputs pre-filled by
   two different bytes, every entry a consumer reads equal.
 
-The host C++ runtime's build and host tools (no card needed):
+The host C++ runtime's tools (no card needed):
 
-- :mod:`jpeg_tpu_torch.tools.pgo_train`: the training child of the
-  runtime's profile-guided build (``tools/pgo_train.py``);
 - :mod:`jpeg_tpu_torch.tools.ab_host_entropy`: interleaved same-process
-  A/B of runtime builds, the shipping (profile-guided) one among them
+  A/B of runtime builds, the shipping one among them
   (``tools/ab_host_entropy.py``);
 - :mod:`jpeg_tpu_torch.tools.abench`: the quick host-entropy rates
   ``seq``, ``corpus``, ``spec``, ``arith``, ``prog`` (``tools/abench.py``);
@@ -49,7 +47,7 @@ On the card (run through ``python -m``)::
     python -m jpeg_tpu_torch.tools.bench_device_spec
     python -m jpeg_tpu_torch.tools.ablate_kernel
     python -m jpeg_tpu_torch.tools.sweep_tiles
-    python -m jpeg_tpu_torch.tools.ab_host_entropy plain=""
+    python -m jpeg_tpu_torch.tools.ab_host_entropy o2=-O2
     python -m jpeg_tpu_torch.tools.abench seq corpus spec arith prog
     python -m jpeg_tpu_torch.tools.microbench
     python -m jpeg_tpu_torch.tools.asan_sweep --seeds 0-2

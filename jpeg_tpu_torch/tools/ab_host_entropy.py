@@ -9,18 +9,18 @@ port's counterpart of the repo-root ``tools/ab_host_entropy.py``.
 
 A host's rate drifts from minute to minute, so timing one build after
 another cannot resolve a 5-15% change. This tool builds each ``NAME=DEFS``
-variant of the runtime (the shipping compiler line plus ``DEFS``, plain:
-no profile-guided step) as a library of its own (``jpegtpu.ab_<NAME>``,
-hash-named in ``jpeg_tpu_torch/build/``), loads them all beside the
-shipping runtime (the ``shipping`` arm: the profile-guided build, as the
-JAX tool's first arm is the runtime it loads by default), and alternates
-rounds arm by arm: per round, each arm's ``entropy_host_fps`` (the
-threaded plane decode of one frame) and ``entropy_corpus_fps`` (one
-single-threaded decode per worker, a worker per core), the bench's rungs
-(``jpeg_tpu_torch.bench``), on the restart-per-row frame (the committed 4K
-fixture at 3840x2160, else the port's encode at ``--size``). Medians across
-rounds cancel the drift; [min, max] shows what is left. So ``plain=""``
-against ``shipping`` is the profile-guided build's A/B.
+variant of the runtime (the shipping compiler line plus ``DEFS``) as a
+library of its own (``jpegtpu.ab_<NAME>``, hash-named in
+``jpeg_tpu_torch/build/``), loads them all beside the shipping runtime (the
+``shipping`` arm, as the JAX tool's first arm is the runtime it loads by
+default), and alternates rounds arm by arm: per round, each arm's
+``entropy_host_fps`` (the threaded plane decode of one frame) and
+``entropy_corpus_fps`` (one single-threaded decode per worker, a worker per
+core), the bench's rungs (``jpeg_tpu_torch.bench``), on the restart-per-row
+frame (the committed 4K fixture at 3840x2160, else the port's encode at
+``--size``). Medians across rounds cancel the drift; [min, max] shows what
+is left. ``plain=""`` builds the shipping line again: an A/A that shows the
+host's noise.
 
 Prints one line per round and the medians with their spread, as the JAX
 tool does. Host numbers: they time the CPU, not the card.
@@ -37,7 +37,7 @@ SHIPPING = "shipping"
 
 def build_variant(name: str, defs: str) -> str:
     """The runtime built with ``defs`` appended to the shipping compiler
-    line, plain, as the library ``jpegtpu.ab_<name>``; returns its path."""
+    line, as the library ``jpegtpu.ab_<name>``; returns its path."""
     from jpeg_tpu_torch import runtime
     from jpeg_tpu_torch.utils.build import GXX_FLAGS, build_library
 

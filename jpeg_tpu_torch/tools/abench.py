@@ -11,7 +11,7 @@ Modes (default ``seq``):
 - ``corpus``: the same frame, one single-threaded decode per worker, a
   worker per host core (as the bench's ``entropy_corpus_fps``);
 - ``spec``: the frame without restart markers, speculative, every thread
-  (the chunk counts the runtime's tuner hands out);
+  (``4 * threads`` chunks);
 - ``arith``: the arithmetic (SOF9) frame, a restart every 16 MCUs, every
   thread;
 - ``prog``: the progressive frame, every thread.

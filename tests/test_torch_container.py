@@ -173,7 +173,6 @@ def test_import_never_loads_jax():
             "import jpeg_tpu_torch.bench; "
             "import jpeg_tpu_torch.tools.endurance; "
             "import jpeg_tpu_torch.tools.measure_approx_quality; "
-            "import jpeg_tpu_torch.tools.pgo_train; "
             "import jpeg_tpu_torch.tools.ab_host_entropy; "
             "import jpeg_tpu_torch.tools.abench; "
             "import jpeg_tpu_torch.tools.dump_scan; "
@@ -183,7 +182,7 @@ def test_import_never_loads_jax():
             "import jpeg_tpu_torch.tools.asan_sweep; "
             "import jpeg_tpu_torch.tools.sentinel; "
             "from jpeg_tpu_torch import runtime; runtime.load(); "
-            "assert runtime.pgo_status() == 'on'; "
+            "assert runtime.pgo_status() == 'off'; "
             "assert runtime.spec_tuner_snapshot() == {}; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert 'jpeg_tpu' not in sys.modules, 'jpeg_tpu loaded'")
@@ -208,8 +207,8 @@ def test_port_sources_name_no_jax_import():
 
 def test_no_include_or_build_command_names_the_jax_package(monkeypatch):
     """No C, C++ or CUDA file of the port includes a file inside jpeg_tpu/,
-    and every build the port's host tools run (the runtime's profile-guided
-    build, its plain and ASan builds, the microbenchmarks, the libjpeg
+    and every build the port's host tools run (the runtime's build, an A/B
+    variant of it, its ASan builds, the microbenchmarks, the libjpeg
     harness) compiles only sources inside jpeg_tpu_torch/ and names no path
     inside jpeg_tpu/."""
     import re
@@ -239,9 +238,7 @@ def test_no_include_or_build_command_names_the_jax_package(monkeypatch):
 
     def spy(name, compiler, sources, headers=(), **kw):
         seen.append((name, [*compiler, *sources, *headers,
-                            *kw.get("libs", ()),
-                            *(kw["pgo"].command + kw["pgo"].inputs
-                              if kw.get("pgo") else ())], sources))
+                            *kw.get("libs", ())], sources))
         raise Stop(name)
 
     monkeypatch.setattr(build, "_loaded", {})
@@ -249,8 +246,8 @@ def test_no_include_or_build_command_names_the_jax_package(monkeypatch):
     monkeypatch.setattr(build, "build_executable", spy)
     monkeypatch.setattr(arith_ref, "build_executable", spy)
     monkeypatch.setattr(runtime, "load_library", lambda name, compiler,
-                        sources, configure, headers=(), pgo=None: spy(
-                            name, compiler, sources, headers, pgo=pgo))
+                        sources, configure, headers=(): spy(
+                            name, compiler, sources, headers))
     monkeypatch.setattr(arith_ref, "find_header", lambda: "jpeglib.h")
     calls = [(False, runtime.load), (False, runtime.load_encoder),
              (False, lambda: ab_host_entropy.build_variant("plain", "")),

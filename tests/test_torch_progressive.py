@@ -328,10 +328,10 @@ def test_port_builds_nothing_inside_the_jax_package(monkeypatch):
     class Stop(Exception):
         pass
 
-    def spy(name, compiler, sources, headers=(), **kw):
+    def spy(name, compiler, sources, headers=()):
         seen.extend([*sources, *headers])
         if compiler[0] == "g++":
-            return real(name, compiler, sources, headers, **kw)
+            return real(name, compiler, sources, headers)
         raise Stop(name)  # no nvcc here: record, do not compile
 
     monkeypatch.setattr(build, "_loaded", {})

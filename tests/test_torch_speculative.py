@@ -2,16 +2,20 @@
 ``native_decode_planes(speculative=, n_chunks=)`` on streams without
 restart markers (the cases of ``tests/test_speculative.py`` that need no
 reference corpus, their streams from the port's encoder instead of PIL),
-its fixed chunk count, and ``native_decode_gap``,
+its fixed chunk count (``4 * n_threads`` unless ``n_chunks`` is given,
+the same at every call, as the bench reports it), and ``native_decode_gap``,
 the gap recovery of ``entropy/device_spec.py``, against the JAX binding
 and against the port's NumPy oracle loop."""
+
+import builtins
+import os
 
 import numpy as np
 import pytest
 
 import jpeg_tpu.runtime as ref_rt
 from jpeg_tpu.io.container import parse_jpeg as ref_parse
-from jpeg_tpu_torch import encode_rgb
+from jpeg_tpu_torch import bench, encode_rgb
 from jpeg_tpu_torch import runtime as rt
 from jpeg_tpu_torch.entropy import device_spec as spec
 from jpeg_tpu_torch.io.container import parse_jpeg
@@ -61,17 +65,9 @@ def test_explicit_chunk_counts(n_chunks):
     _assert_spec_equals_seq(data, n_chunks=n_chunks, n_threads=4)
 
 
-@pytest.mark.parametrize("n_threads,n_chunks,want", [(2, None, 8),
-                                                     (3, None, 12),
-                                                     (2, 5, 5)])
-def test_chunk_count_is_four_per_thread(monkeypatch, tmp_path, n_threads,
-                                        n_chunks, want):
-    """Without ``n_chunks`` the speculative decode takes ``4 * n_threads``
-    chunks, the first count the JAX runtime's tuner tries: here the tuner
-    starts afresh (its state is per process and persisted, so earlier calls
-    on this geometry class would have moved it on)."""
-    monkeypatch.setattr(rt, "_TUNER", rt.SpecTuner(
-        str(tmp_path / "spec_tuner.json"), lambda: "test"))
+def _spy_spec(monkeypatch) -> list:
+    """Make ``rt.load`` return the runtime with ``jt_decode_scan_planes_spec``
+    wrapped; returns the list its calls' (n_chunks, n_threads) land in."""
     lib = rt.load()
     seen = []
 
@@ -84,6 +80,20 @@ def test_chunk_count_is_four_per_thread(monkeypatch, tmp_path, n_threads,
             return lib.jt_decode_scan_planes_spec(*args)
 
     monkeypatch.setattr(rt, "load", Spy)
+    return seen
+
+
+@pytest.mark.parametrize("n_threads,n_chunks,want", [(1, None, 4),
+                                                     (2, None, 8),
+                                                     (3, None, 12),
+                                                     (4, None, 16),
+                                                     (8, None, 32),
+                                                     (2, 5, 5)])
+def test_chunk_count_is_four_per_thread(monkeypatch, n_threads, n_chunks,
+                                        want):
+    """Without ``n_chunks`` the speculative decode takes ``4 * n_threads``
+    chunks, the first count the JAX runtime's tuner tries."""
+    seen = _spy_spec(monkeypatch)
     img = np.random.default_rng(11).integers(0, 256, (64, 96, 3), dtype=np.uint8)
     data = encode_rgb(img, quality=90)
     got = rt.native_decode_planes(parse_jpeg(data), n_threads=n_threads,
@@ -95,6 +105,53 @@ def test_chunk_count_is_four_per_thread(monkeypatch, tmp_path, n_threads,
                                               reuse_buffer=False)
     for a, b in zip(got, want_planes):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_threads", [2, 4, 8])
+def test_default_chunk_count_is_the_same_every_call(monkeypatch, n_threads):
+    """Five calls in a row on one frame all take ``4 * n_threads`` chunks
+    and open no file for writing: no state is kept between calls."""
+    seen = _spy_spec(monkeypatch)
+    img = np.random.default_rng(12).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    plan = parse_jpeg(encode_rgb(img, quality=90))
+    want = [p.copy() for p in rt.native_decode_planes(
+        plan, speculative=False, reuse_buffer=False)]
+    writes = []
+    real_open = builtins.open
+
+    def spy_open(file, mode="r", *args, **kw):
+        if any(c in mode for c in "wax+"):
+            writes.append(file)
+        return real_open(file, mode, *args, **kw)
+
+    monkeypatch.setattr(builtins, "open", spy_open)
+    for _ in range(5):
+        got = rt.native_decode_planes(plan, n_threads=n_threads,
+                                      speculative=True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    monkeypatch.undo()
+    assert seen == [(4 * n_threads, n_threads)] * 5
+    assert writes == []
+    assert rt.spec_tuner_snapshot() == {}
+
+
+def test_bench_reports_the_fixed_chunk_count():
+    """``bench.spec_tuner_detail`` gives ``4 * cores`` for a restart-free
+    frame at or above the 64 KB threshold, None below it, an empty tuner
+    snapshot and ``pgo`` off."""
+    cores = os.cpu_count() or 1
+    rng = np.random.default_rng(13)
+    big = parse_jpeg(encode_rgb(rng.integers(0, 256, (256, 256, 3),
+                                             dtype=np.uint8), quality=95))
+    small = parse_jpeg(encode_rgb(rng.integers(0, 256, (64, 64, 3),
+                                               dtype=np.uint8), quality=95))
+    assert len(big.segments) == len(small.segments) == 1
+    assert len(big.scan_data) >= 65536 > len(small.scan_data)
+    for plan, want in ((big, 4 * cores if cores > 1 else None),
+                       (small, None)):
+        assert bench.spec_tuner_detail(plan) == {
+            "spec_chunks": want, "spec_tuner": {}, "pgo": "off"}
 
 
 def test_low_entropy_stream():
