@@ -5,7 +5,7 @@
 
 Builds the C++ entropy runtime and entropy encoder (the port's own copies
 of the JAX package's C++ sources, ``jpeg_tpu_torch/runtime/native/``), the
-six CUDA libraries (K1-K7, K1a with K1), the K3 pass-1 ablation's library,
+seven CUDA libraries (K1-K8, K1a with K1), the K3 pass-1 ablation's library,
 two K1 cell variants and the host tools' programs (two AddressSanitizer
 builds of the C++ sources, the four microbenchmarks, the libjpeg harness
 where ``jpeglib.h`` is found) from this checkout (all at once), checks
@@ -17,14 +17,15 @@ runs on the tensor cores, to the tolerance of their order of sums, the
 others bit for bit), shows that K1a's machine code holds tensor-core
 instructions (HMMA) and K1's none, holds K1a within the approx gate of K1
 (docs/APPROX_QUALITY.md), times K1 and K1a at 8 and 62 4K frames, K3 at 1,
-8 and 32, K4 and K2 at 1 and 8, each beside its bound, then drives these
-paths:
+8 and 32, K4 and K2 at 1 and 8, each beside its bound, holds K8 (the
+encoder's Huffman pack, ``csrc/huffman_encode.cu``) to the C++ packer's
+bytes on K2's planes and times it at 4K, then drives these paths:
 
 - the hybrid host + device corpus decode of 64 images (62 of them
   3840x2160 frames) through ``BatchedCorpusDecoder(hybrid_device=True)``
   (K3 and K1);
 - encode -> decode: eight 3840x2160 frames encoded by
-  ``encode_rgb_device`` (K2 and the C++ packer), held to the CPU route's
+  ``encode_rgb_device`` (K2 and K8), held to the CPU route's
   bytes and to the host encoder's pixels, then decoded as a 32-item corpus
   through the hybrid decoder (K3 and K1) and held to the host route and to
   the source images;
@@ -506,6 +507,7 @@ def run() -> list[dict]:
     )
     from jpeg_tpu_torch.ops import fused_encode as k2
     from jpeg_tpu_torch.ops import fused_plane as k1
+    from jpeg_tpu_torch.ops import huffman_encode as k8
     from jpeg_tpu_torch.ops import idct_only as k56
     from jpeg_tpu_torch.parallel.pipeline import BatchedCorpusDecoder
     from jpeg_tpu_torch.tools import ablate_kernel, arith_ref, microbench
@@ -532,6 +534,7 @@ def run() -> list[dict]:
               ("C++ entropy encoder (g++)", runtime.load_encoder),
               ("K1 fused_plane.cu (nvcc sm_90a)", k1.load_kernel),
               ("K2 fused_encode.cu (nvcc sm_90a)", k2.load_kernel),
+              ("K8 huffman_encode.cu (nvcc sm_90a)", k8.load_kernel),
               ("K3 huffman_lanes.cu (nvcc sm_90a)", k3.load_kernel),
               ("K4 huffman_words.cu (nvcc sm_90a)", k4.load_kernel),
               ("K7 huffman_spec.cu (nvcc sm_90a)", k7.load_kernel),
@@ -807,7 +810,8 @@ def run() -> list[dict]:
     #    encode -> decode.
     frames = [sources[i % 2] for i in range(BATCH)]
     k2_rec = check_k2(frames, dev)
-    streams, k2_launches = encode_path(frames)
+    k8_rec = check_huffman_encode(frames, dev)
+    streams, k2_launches, k8_launches = encode_path(frames)
     k1_rt_launches, k3_rt_launches = round_trip(streams, sources)
 
     # 9. The single-frame device-entropy decode (K4 -> planes -> K1).
@@ -915,6 +919,10 @@ def run() -> list[dict]:
          "launches": k2_launches, "launches_bench": bench["K2"], **k2_rec,
          "library_ms": None,
          "launches_scale_out": {k: v["K2"] for k, v in scale["launches"].items()}},
+        {"name": "K8 huffman_encode", "route": "cuda",
+         "source": "jpeg_tpu_torch/csrc/huffman_encode.cu",
+         "replaces": None, "launches": k8_launches, **k8_rec,
+         "library_ms": None},
         {"name": "K3 huffman_lanes", "route": "cuda",
          "source": "jpeg_tpu_torch/csrc/huffman_lanes.cu",
          "replaces": "jpeg_tpu/entropy/device_window.py:175",
@@ -2382,6 +2390,81 @@ def k2_bound(rgb, iq, geom) -> dict:
                  coeffs / 64 * OPS_PER_BLOCK + 15 * rgb[:, 0].numel())
 
 
+def check_huffman_encode(frames, dev) -> dict:
+    """K8, the encoder's Huffman pack, against the C++ packer on K2's
+    planes: ``pack_planes_device`` (K8 and the container) equal to
+    ``pack_planes`` (the planes downloaded, the C++ pack) for two 4K 4:2:0
+    frames with a restart every MCU row and with none, and for 4:2:2, 4:4:4
+    and gray at 512x384 with a restart every 7 MCUs (segments that end
+    mid-row). Then K8 at the 4K shape: its six kernels queued (CUDA
+    events), the whole pack with its two reads and the copy out (host
+    clock), and its plain twin on the host's CPU. Returns the measured
+    fields of K8's record."""
+    import torch
+
+    from jpeg_tpu_torch.models import encoder
+    from jpeg_tpu_torch.ops import huffman_encode as k8
+    from jpeg_tpu_torch.parallel.batch import encode_batch_device
+
+    def k2_planes(img, **kw):
+        geom, planar, iq, quant_zz = encoder.device_inputs(img, QUALITY, **kw)
+        planes = encode_batch_device(planar[None], iq[None], geom, device=dev)
+        return geom, [p[0] for p in planes], quant_zz
+
+    def compare(label, geom, planes, quant_zz, restart) -> int:
+        got = encoder.pack_planes_device(planes, geom, quant_zz, restart)
+        torch.cuda.synchronize()
+        want = encoder.pack_planes([p.cpu().numpy() for p in planes], geom,
+                                   quant_zz, restart)
+        check(got == want, f"K8 vs the C++ packer, {label}: {len(got)} and "
+              f"{len(want)} bytes, equal")
+        return len(got)
+
+    before, cases = k8.LAUNCHES.value, 0
+    for n, frame in enumerate(frames[:2]):
+        geom, planes, quant_zz = k2_planes(frame, subsampling=(2, 2))
+        for restart in (RESTART_4K, 0):
+            size = compare(f"4K frame {n} 4:2:0, restart {restart}", geom,
+                           planes, quant_zz, restart)
+            cases += 1
+    img = synthetic_image(512, 384, seed=3)
+    for label, kw in (("4:2:2", dict(subsampling=(2, 1))),
+                      ("4:4:4", dict(subsampling=(1, 1))),
+                      ("gray", dict(grayscale=True))):
+        src = img[..., 0] if kw.get("grayscale") else img
+        compare(f"512x384 {label}, restart 7", *k2_planes(src, **kw), 7)
+        cases += 1
+    check(k8.LAUNCHES.value == before + cases,
+          f"K8 launched once a pack: {k8.LAUNCHES.value - before} for {cases}")
+
+    geom, planes, _ = k2_planes(frames[0], subsampling=(2, 2))
+    _, _, tables = encoder._annex_k_pack(False, planes[0].device)
+    scan = k8.huffman_encode_cuda(planes, geom, RESTART_4K, tables)
+    ms = cuda_ms(lambda: k8.enqueue(planes, geom, RESTART_4K, tables), 10, 2,
+                 inner=10, queued=True)
+    ms_norst = cuda_ms(lambda: k8.enqueue(planes, geom, 0, tables), 10, 2,
+                       inner=10, queued=True)
+    wall = host_ms(lambda: k8.huffman_encode_cuda(planes, geom, RESTART_4K,
+                                                  tables), reps=10)
+    cpu_planes = [p.cpu() for p in planes]
+    t0 = time.perf_counter()
+    plain = k8.huffman_encode_plain(cpu_planes, geom, RESTART_4K,
+                                    tables.cpu())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(plain == scan, "K8 vs its plain twin, 4K frame 0: equal bytes")
+    blocks = geom.mcus_x * geom.mcus_y * geom.blocks_per_mcu
+    bnd = bound(2 * 128 * blocks + len(scan))  # the blocks read twice
+    print(f"K8 1x{geom.width}x{geom.height} 4:2:0 ({blocks} blocks, "
+          f"{len(scan)} scan bytes): kernels {ms:.4f} ms (restart per MCU "
+          f"row), {ms_norst:.4f} ms (none), {share(ms, bnd)} (median, CUDA "
+          f"events, packs queued in a row); whole pack with its reads "
+          f"{wall:.3f} ms (host clock); plain twin {plain_ms:.1f} ms (the "
+          f"host's CPU); last 4K stream {size} bytes", flush=True)
+    return {"ms": ms, "ms_no_restarts": ms_norst, "wall_ms": wall,
+            "plain_ms": plain_ms, "plain_on": "host CPU", **bnd,
+            "frames": 1, "scan_bytes": len(scan), "compared": cases}
+
+
 def check_k2(frames, dev) -> dict:
     """K2 against its plain version: every sampling it takes (the seven K1
     is held on, two seeded 520x200 images each), a 512x384 gray image, a
@@ -2885,28 +2968,36 @@ def scale_out(dev, card: str, items, hybrid, host_res, sources) -> dict:
     return {"launches": launches, **times}
 
 
-def encode_path(frames) -> tuple[list[bytes], int]:
-    """The encode path: ``encode_rgb_device`` on each frame (K2 + the C++
-    packer), its stages timed, the CPU route's bytes, and the host encoder
-    on the same frames. Returns (the device streams, K2 launches)."""
+def encode_path(frames) -> tuple[list[bytes], int, int]:
+    """The encode path: ``encode_rgb_device`` on each frame (K2 + K8, the
+    Huffman pack on the card), the CPU route's bytes, the host encoder on
+    the same frames, and the route K8 replaced (planes downloaded, the C++
+    pack) stage by stage, held to the same bytes. Returns (the device
+    streams, K2 launches, K8 launches), both counted over the timed frames
+    alone and checked to be one a frame."""
     import torch
 
     from jpeg_tpu_torch import decode_bytes, encode_rgb, encode_rgb_device
     from jpeg_tpu_torch.models.encoder import device_inputs, pack_planes
     from jpeg_tpu_torch.ops import fused_encode as k2
+    from jpeg_tpu_torch.ops import huffman_encode as k8
     from jpeg_tpu_torch.parallel.batch import encode_batch_device
 
     kw = dict(quality=QUALITY, subsampling=(2, 2),
               restart_interval_mcus=RESTART_4K)
     encode_rgb_device(frames[0], device="cuda", **kw)  # warm-up
     k2.LAUNCHES.reset()
+    k8.LAUNCHES.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     streams = [encode_rgb_device(f, device="cuda", **kw) for f in frames]
     wall = time.perf_counter() - t0
-    launches = k2.LAUNCHES.value
+    launches, k8_launches = k2.LAUNCHES.value, k8.LAUNCHES.value
     check(launches == len(frames),
           f"encode path went through K2: {launches} launches for "
+          f"{len(frames)} frames")
+    check(k8_launches == len(frames),
+          f"encode path packed on the card (K8): {k8_launches} launches for "
           f"{len(frames)} frames")
 
     # The same frames again, stage by stage.
@@ -2951,7 +3042,7 @@ def encode_path(frames) -> tuple[list[bytes], int]:
           f"bytes; host encode_rgb {len(frames) / host_wall:.3f} frames/s "
           f"({host_wall:.3f} s), mean stream "
           f"{np.mean([len(x) for x in host_streams]):.0f} bytes", flush=True)
-    return streams, launches
+    return streams, launches, k8_launches
 
 
 def round_trip(streams, sources) -> tuple[int, int]:

@@ -12,9 +12,11 @@ the JAX package:
   (``engine="python"``; ``entropy/arith.py`` for arithmetic coding, which
   SOF10 streams and arithmetic CMYK always take, as in the JAX package);
 - :func:`encode_rgb_device`: the forward transform as K2
-  (``ops/fused_encode.py``) on ``device``, the planes copied to the host
-  once, then the C++ entropy encoder. K2 multiplies by a reciprocal table
-  where the host route divides, so the two routes are not byte-identical
+  (``ops/fused_encode.py``) on ``device``; on a CUDA device the Huffman
+  pack too (``ops/huffman_encode.py``), so only the scan's bytes come down;
+  on the CPU, and with ``optimize=True``, the planes come down once and the
+  C++ entropy encoder packs them. K2 multiplies by a reciprocal table where
+  the host route divides, so the two routes are not byte-identical
   (quantisation ties); they decode within the repo's 45 dB bar.
 
 A failed build or load of the C++ encoder raises; nothing drops to the
@@ -24,11 +26,15 @@ Python packer behind the caller's back, where the JAX package falls back on
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from jpeg_tpu_torch.entropy import annex_k
 from jpeg_tpu_torch.entropy.tables import HuffmanTable
 from jpeg_tpu_torch.models.decoder import PipelineGeometry
+from jpeg_tpu_torch.ops.huffman_encode import huffman_encode, pack_tables
+from jpeg_tpu_torch.ops.huffman_encode import mcu_slots as _slots
 from jpeg_tpu_torch.ops.idct import forward_dct_matrix
 from jpeg_tpu_torch.ops.zigzag import ZIGZAG_INDICES, unzigzag, zigzag
 from jpeg_tpu_torch.runtime import (
@@ -234,16 +240,6 @@ def _huffman_tables(grayscale: bool, optimize: bool, comp_blocks_zz=None,
     return dc_t, ac_t
 
 
-def _slots(samplings):
-    """MCU slot order: (component, vi, hi), vi-major (JPEG A.2.3)."""
-    out = []
-    for ci, (h, v) in enumerate(samplings):
-        for vi in range(v):
-            for hi in range(h):
-                out.append((ci, vi, hi))
-    return out
-
-
 def _entropy_python(comp_blocks_zz, samplings, dc_maps, ac_maps,
                     mcus_x, mcus_y, restart_interval_mcus):
     scan = bytearray()
@@ -362,6 +358,29 @@ def pack_planes(planes, geom, quant_zz, restart_interval_mcus: int = 0,
                       geom.width, restart_interval_mcus)
 
 
+@functools.cache
+def _annex_k_pack(grayscale: bool, device) -> tuple:
+    """The Annex K tables (dc, ac), luma first, and the device pack's
+    layout of them (:func:`pack_tables`) on ``device``; built once."""
+    dc_t, ac_t = _huffman_tables(grayscale, False)
+    return dc_t, ac_t, pack_tables([_build_encode_maps(t) for t in dc_t],
+                                   [_build_encode_maps(t) for t in ac_t]
+                                   ).to(device)
+
+
+def pack_planes_device(planes, geom, quant_zz,
+                       restart_interval_mcus: int = 0) -> bytes:
+    """K2's int16 planes of one image where K2 left them (per component a
+    [rows, stride] tensor, padded layout) -> JFIF bytes, with the Annex K
+    tables: the Huffman pack of :mod:`jpeg_tpu_torch.ops.huffman_encode`
+    (the kernels on a CUDA device), then the container on the host."""
+    samplings = list(geom.sampling)
+    dc_t, ac_t, tables = _annex_k_pack(len(samplings) == 1, planes[0].device)
+    scan = huffman_encode(planes, geom, restart_interval_mcus, tables)
+    return _container(scan, samplings, quant_zz, dc_t, ac_t, geom.height,
+                      geom.width, restart_interval_mcus)
+
+
 def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
                       subsampling: tuple[int, int] = (2, 2),
                       restart_interval_mcus: int = 0,
@@ -373,12 +392,17 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
     The dense half (colour convert, chroma box downsample, forward DCT,
     quantisation) runs as K2 (:func:`jpeg_tpu_torch.ops.fused_encode.
     fused_plane_encode`): the kernel on a CUDA device, its plain PyTorch
-    twin on the CPU. Its quantized int16 planes come back to the host once
-    and the C++ entropy encoder packs them in parallel. Not byte-identical
-    to :func:`encode_rgb` (K2 multiplies by a reciprocal table where the
-    host route divides); equivalent quality. Under ``torch.profiler`` the
-    call is recorded as ``encode.call``
-    (:mod:`jpeg_tpu_torch.utils.profiling`).
+    twin on the CPU. On a CUDA device the card also packs the Huffman scan
+    from K2's planes (:func:`pack_planes_device`) and only the scan's bytes
+    come down. On the CPU, and with ``optimize=True`` (whose tables come
+    from the frame's statistics on the host), the quantized int16 planes
+    come back to the host once and the C++ entropy encoder packs them in
+    parallel (:func:`pack_planes`); both packs give the same bytes for the
+    same planes. Not byte-identical to :func:`encode_rgb` (K2 multiplies by
+    a reciprocal table where the host route divides); equivalent quality.
+    Under ``torch.profiler`` the call is recorded as ``encode.call``
+    (:mod:`jpeg_tpu_torch.utils.profiling`), with the count
+    ``device_packed`` (1 where the card packed the scan) on a CUDA device.
     """
     from jpeg_tpu_torch.parallel.batch import encode_batch_device
 
@@ -389,15 +413,23 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
         with span("encode.k2"):
             planes = encode_batch_device(planar[None], iq[None], geom,
                                          device=device)
-        with span("encode.d2h"):
-            planes = [p[0].cpu().numpy() for p in planes]
-        with span("encode.pack"):
-            data = pack_planes(planes, geom, quant_zz, restart_interval_mcus,
-                               optimize)
+        on_card = planes[0].device.type == "cuda"
+        if on_card and not optimize:
+            with span("encode.pack"):
+                data = pack_planes_device([p[0] for p in planes], geom,
+                                          quant_zz, restart_interval_mcus)
+        else:
+            with span("encode.d2h"):
+                planes = [p[0].cpu().numpy() for p in planes]
+            with span("encode.pack"):
+                data = pack_planes(planes, geom, quant_zz,
+                                   restart_interval_mcus, optimize)
         if root:
             root.add("frames", 1)
             root.add("bytes_in", np.asarray(rgb).nbytes)
             root.add("bytes_out", len(data))
+            if on_card:
+                root.add("device_packed", int(not optimize))
     return data
 
 
