@@ -35,8 +35,10 @@ The encoder (``models/encoder.py``):
   writes SOF3;
 - ``encode_rgb_device``: K2, the fused colour + box mean + forward DCT +
   quantise kernel (``ops/fused_encode.py``, ``csrc/fused_encode.cu``;
-  batched by ``parallel/batch.py::encode_batch_device``), then the C++
-  entropy encoder.
+  batched by ``parallel/batch.py::encode_batch_device``). On a CUDA device
+  the frame goes up as it stands and is transposed and edge-padded there,
+  and K8 (``ops/huffman_encode.py``) packs the scan; on the CPU and with
+  ``optimize`` the C++ entropy encoder packs it.
 
 The other kernels:
 

@@ -12,12 +12,14 @@ the JAX package:
   (``engine="python"``; ``entropy/arith.py`` for arithmetic coding, which
   SOF10 streams and arithmetic CMYK always take, as in the JAX package);
 - :func:`encode_rgb_device`: the forward transform as K2
-  (``ops/fused_encode.py``) on ``device``; on a CUDA device the Huffman
-  pack too (``ops/huffman_encode.py``), so only the scan's bytes come down;
-  on the CPU, and with ``optimize=True``, the planes come down once and the
-  C++ entropy encoder packs them. K2 multiplies by a reciprocal table where
-  the host route divides, so the two routes are not byte-identical
-  (quantisation ties); they decode within the repo's 45 dB bar.
+  (``ops/fused_encode.py``) on ``device``; on a CUDA device the frame goes
+  up as it stands and is laid out for K2 there, and the Huffman pack runs
+  there too (``ops/huffman_encode.py``), so only the scan's bytes come
+  down; on the CPU, and with ``optimize=True``, the planes come down once
+  and the C++ entropy encoder packs them. K2 multiplies by a reciprocal
+  table where the host route divides, so the two routes are not
+  byte-identical (quantisation ties); they decode within the repo's 45 dB
+  bar.
 
 A failed build or load of the C++ encoder raises; nothing drops to the
 Python packer behind the caller's back, where the JAX package falls back on
@@ -29,6 +31,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from jpeg_tpu_torch.entropy import annex_k
 from jpeg_tpu_torch.entropy.tables import HuffmanTable
@@ -295,15 +298,12 @@ def _entropy_native(comp_blocks_zz, samplings, dc_maps, ac_maps,
                         ac_maps, mcus_x, mcus_y, restart_interval_mcus)
 
 
-def device_inputs(rgb: np.ndarray, quality: int = 85,
-                  subsampling: tuple[int, int] = (2, 2),
-                  grayscale: bool = False):
-    """What :func:`encode_rgb_device` hands K2 for one image, prepared on
-    the host: (geometry, edge-padded planar u8 [n_comp, H_pad, W_pad],
-    natural-order reciprocal quant tables f32 [n_comp, 64], the zigzag
-    quant tables of the stream's DQT segments)."""
+def _device_plan(rgb, quality: int, subsampling, grayscale: bool):
+    """What :func:`encode_rgb_device` works out on the host on every
+    device: the validated array, the geometry, natural-order reciprocal
+    quant tables f32 [n_comp, 64] and the zigzag quant tables of the
+    stream's DQT segments."""
     from jpeg_tpu_torch.ops.fused_encode import plan_inv_quant_tables
-    from jpeg_tpu_torch.ops.fused_plane import padded_size
 
     rgb = np.asarray(rgb)
     _validate_image(rgb, grayscale)
@@ -318,16 +318,65 @@ def device_inputs(rgb: np.ndarray, quality: int = 85,
         mcus_x=-(-width // (8 * h_max)), mcus_y=-(-height // (8 * v_max)),
         h_max=h_max, v_max=v_max, sampling=samplings,
         color_model="gray" if grayscale else "ycbcr")
-    # Component 0 (luma) is at full Y resolution: its padded plane shape is
-    # exactly the planar input shape K2 expects.
-    rows_pad, w_pad = padded_size(geom)
-    chans = rgb[None] if grayscale else rgb.transpose(2, 0, 1)
-    planar = np.pad(chans, ((0, 0), (0, rows_pad - geom.height),
-                            (0, w_pad - geom.width)), mode="edge")
     quant_zz = _quant_tables(quality, grayscale)
     iq = plan_inv_quant_tables([quant_zz[min(ci, len(quant_zz) - 1)]
                                 for ci in range(len(geom.sampling))])
+    return rgb, geom, iq, quant_zz
+
+
+def device_inputs(rgb: np.ndarray, quality: int = 85,
+                  subsampling: tuple[int, int] = (2, 2),
+                  grayscale: bool = False):
+    """What :func:`encode_rgb_device` hands K2 for one image on the CPU,
+    prepared on the host: (geometry, edge-padded planar u8 [n_comp, H_pad,
+    W_pad], natural-order reciprocal quant tables f32 [n_comp, 64], the
+    zigzag quant tables of the stream's DQT segments). On a CUDA device the
+    route makes the same planar array on the card instead
+    (:func:`upload_frame`, :func:`planar_layout`)."""
+    from jpeg_tpu_torch.ops.fused_plane import padded_size
+
+    rgb, geom, iq, quant_zz = _device_plan(rgb, quality, subsampling,
+                                           grayscale)
+    # Component 0 (luma) is at full Y resolution: its padded plane shape is
+    # exactly the planar input shape K2 expects.
+    rows_pad, w_pad = padded_size(geom)
+    chans = rgb[None] if len(geom.sampling) == 1 else rgb.transpose(2, 0, 1)
+    planar = np.pad(chans, ((0, 0), (0, rows_pad - geom.height),
+                            (0, w_pad - geom.width)), mode="edge")
     return geom, planar, iq, quant_zz
+
+
+def upload_frame(rgb: np.ndarray, device) -> torch.Tensor:
+    """``rgb`` u8 ([H, W, C] or [H, W]) on ``device`` as it stands, by one
+    copy from the caller's memory. On an H100 that copy of a 4K frame
+    (1.98 ms) beat a copy into page-locked memory and its DMA (2.50 ms)."""
+    if rgb.dtype != np.uint8:
+        raise ValueError(f"encode_rgb_device takes uint8 samples on a card, "
+                         f"got {rgb.dtype}")
+    if not (rgb.flags.c_contiguous and rgb.flags.writeable):
+        # torch.from_numpy refuses a negative stride and warns of a
+        # read-only array, and PyTorch copies a strided view slowly
+        rgb = rgb.copy()
+    return torch.from_numpy(rgb).to(device)
+
+
+def planar_layout(frame: torch.Tensor, geom) -> torch.Tensor:
+    """K2's input made from one frame where it lies: [H, W, C] or [H, W] u8
+    (any strides) -> contiguous planar [C, H_pad, W_pad] on the frame's
+    device, the last row and column repeated up to
+    :func:`~jpeg_tpu_torch.ops.fused_plane.padded_size`: the planar array
+    :func:`device_inputs` makes on the host."""
+    from jpeg_tpu_torch.ops.fused_plane import padded_size
+
+    h_pad, w_pad = padded_size(geom)
+    chans = frame[None] if frame.dim() == 2 else frame.permute(2, 0, 1)
+    n, h, w = chans.shape
+    out = torch.empty((n, h_pad, w_pad), dtype=frame.dtype,
+                      device=frame.device)
+    out[:, :h, :w] = chans
+    out[:, :h, w:] = chans[:, :, w - 1:]
+    out[:, h:] = out[:, h - 1:h]
+    return out
 
 
 def pack_planes(planes, geom, quant_zz, restart_interval_mcus: int = 0,
@@ -392,28 +441,41 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
     The dense half (colour convert, chroma box downsample, forward DCT,
     quantisation) runs as K2 (:func:`jpeg_tpu_torch.ops.fused_encode.
     fused_plane_encode`): the kernel on a CUDA device, its plain PyTorch
-    twin on the CPU. On a CUDA device the card also packs the Huffman scan
-    from K2's planes (:func:`pack_planes_device`) and only the scan's bytes
-    come down. On the CPU, and with ``optimize=True`` (whose tables come
-    from the frame's statistics on the host), the quantized int16 planes
-    come back to the host once and the C++ entropy encoder packs them in
-    parallel (:func:`pack_planes`); both packs give the same bytes for the
-    same planes. Not byte-identical to :func:`encode_rgb` (K2 multiplies by
-    a reciprocal table where the host route divides); equivalent quality.
+    twin on the CPU. K2 reads an edge-padded planar frame. On a CUDA device
+    the caller's frame goes up as it stands (:func:`upload_frame`) and the
+    card transposes and edge-pads it (:func:`planar_layout`); on the CPU
+    the host makes that array (:func:`device_inputs`). On a CUDA device the
+    card also packs the Huffman scan from K2's planes
+    (:func:`pack_planes_device`) and only the scan's bytes come down. On
+    the CPU, and with ``optimize=True`` (whose tables come from the frame's
+    statistics on the host), the quantized int16 planes come back to the
+    host once and the C++ entropy encoder packs them in parallel
+    (:func:`pack_planes`); both packs give the same bytes for the same
+    planes. Not byte-identical to :func:`encode_rgb` (K2 multiplies by a
+    reciprocal table where the host route divides); equivalent quality.
     Under ``torch.profiler`` the call is recorded as ``encode.call``
     (:mod:`jpeg_tpu_torch.utils.profiling`), with the count
-    ``device_packed`` (1 where the card packed the scan) on a CUDA device.
+    ``device_packed`` (1 where the card packed the scan) on a CUDA device,
+    and the upload and layout as ``encode.upload`` with its ``bytes``.
     """
     from jpeg_tpu_torch.parallel.batch import encode_batch_device
 
+    on_card = torch.device(device).type == "cuda"
     with profiling.call("encode.call") as root:
         with span("encode.prepare"):
-            geom, planar, iq, quant_zz = device_inputs(rgb, quality,
+            if on_card:
+                rgb, geom, iq, quant_zz = _device_plan(rgb, quality,
                                                        subsampling, grayscale)
+            else:
+                geom, planar, iq, quant_zz = device_inputs(
+                    rgb, quality, subsampling, grayscale)
+        if on_card:
+            with span("encode.upload") as upload:
+                planar = planar_layout(upload_frame(rgb, device), geom)
+                upload.add("bytes", rgb.nbytes)
         with span("encode.k2"):
             planes = encode_batch_device(planar[None], iq[None], geom,
                                          device=device)
-        on_card = planes[0].device.type == "cuda"
         if on_card and not optimize:
             with span("encode.pack"):
                 data = pack_planes_device([p[0] for p in planes], geom,

@@ -173,9 +173,11 @@ def encode_batch_device(rgb_planar_batch, inv_qtabs_batch, geom,
     ``rgb_planar_batch``: [B, 3|1, H_pad, W_pad] u8, edge-padded planar;
     ``inv_qtabs_batch``: [B, n_comp, 64] f32 natural-order reciprocal quant
     tables (:func:`jpeg_tpu_torch.ops.fused_encode.plan_inv_quant_tables`;
-    the JAX version takes tiled patterns). Numpy arrays or tensors. Returns
+    the JAX version takes tiled patterns). Numpy arrays or tensors; a
+    tensor already on ``device`` is used where it lies
+    (``encode_rgb_device`` lays out its frame on the card). Returns
     per-component int16 coefficient planes [B, rows_c, stride_c], ready for
-    the parallel entropy encoder."""
+    the entropy encoder."""
     rgb = torch.as_tensor(rgb_planar_batch)
     iq = torch.as_tensor(inv_qtabs_batch)
     if mesh is None:

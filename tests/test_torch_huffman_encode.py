@@ -166,8 +166,10 @@ class _OnCard:
 
 @pytest.fixture
 def on_card(monkeypatch):
-    """K2's planes handed back as if on a card; the device pack gets the
-    real CPU tensors (its plain twin). Returns the packs' calls."""
+    """The frame's upload kept on the CPU (laid out there by the card
+    route's own ``planar_layout``), K2's planes handed back as if on a
+    card; the device pack gets the real CPU tensors (its plain twin).
+    Returns the packs' calls."""
     import jpeg_tpu_torch.parallel.batch as batch
 
     real_k2, real_pack = batch.encode_batch_device, encoder.pack_planes_device
@@ -186,6 +188,8 @@ def on_card(monkeypatch):
         calls["host"] += 1
         return real_host(*args)
 
+    monkeypatch.setattr(encoder, "upload_frame",
+                        lambda rgb, device: torch.from_numpy(rgb))
     monkeypatch.setattr(batch, "encode_batch_device", k2)
     monkeypatch.setattr(encoder, "pack_planes_device", device_pack)
     monkeypatch.setattr(encoder, "pack_planes", host_pack)
@@ -210,8 +214,9 @@ def _profiled(fn):
     dict(grayscale=True, restart_interval_mcus=2),
 ])
 def test_card_route_packs_on_the_card(on_card, kwargs):
-    """On a card without ``optimize``: the device pack, the same bytes as
-    the CPU route, no ``encode.d2h``, ``device_packed`` 1."""
+    """On a card without ``optimize``: the frame laid out on the card, the
+    device pack, the same bytes as the CPU route, no ``encode.d2h``,
+    ``device_packed`` 1."""
     img = synthetic_image(72, 40, 5)
     if kwargs.get("grayscale"):
         img = img[..., 0]
@@ -220,7 +225,8 @@ def test_card_route_packs_on_the_card(on_card, kwargs):
     data, _, root, kids = _profiled(
         lambda: encode_rgb_device(img, device="cuda", **kwargs))
     assert data == want and on_card == {"device": 1, "host": 1}
-    assert kids == ["encode.prepare", "encode.k2", "encode.pack"]
+    assert kids == ["encode.prepare", "encode.upload", "encode.k2",
+                    "encode.pack"]
     assert root.counts == {"frames": 1, "bytes_in": img.nbytes,
                            "bytes_out": len(data), "device_packed": 1}
 
@@ -231,7 +237,8 @@ def test_card_route_with_optimize_packs_on_the_host(on_card):
     data, _, root, kids = _profiled(
         lambda: encode_rgb_device(img, device="cuda", optimize=True))
     assert data == want and on_card == {"device": 0, "host": 2}
-    assert kids == ["encode.prepare", "encode.k2", "encode.d2h", "encode.pack"]
+    assert kids == ["encode.prepare", "encode.upload", "encode.k2",
+                    "encode.d2h", "encode.pack"]
     assert root.counts["device_packed"] == 0
 
 
@@ -319,7 +326,8 @@ def test_pool_frames_pack_on_the_card(cuda, restart):
         assert data == want, f"frame {n}"
         assert he.LAUNCHES.value == before + 1
         assert root.counts["device_packed"] == 1
-        assert kids == ["encode.prepare", "encode.k2", "encode.pack"]
+        assert kids == ["encode.prepare", "encode.upload", "encode.k2",
+                        "encode.pack"]
 
 
 @pytest.mark.cuda

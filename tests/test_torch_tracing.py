@@ -219,6 +219,60 @@ def test_profiled_encode_records_its_phases():
                for s in kids)
 
 
+@pytest.mark.parametrize("card", [
+    "emulated", pytest.param("real", marks=pytest.mark.cuda)])
+def test_profiled_card_encode_records_its_upload(monkeypatch, card):
+    """The card route records ``encode.upload`` (the frame's upload and
+    its layout) between ``encode.prepare`` and ``encode.k2``, counting the
+    frame's ``bytes``, and ``upload_ms_per_frame.encode`` reads its wall a
+    frame; the CPU route has no such span, and the reader gives nothing.
+    ``emulated`` runs the card route here, its upload and K2 on the CPU."""
+    from benchmark.spec import reader
+    from jpeg_tpu_torch.models import encoder
+    from jpeg_tpu_torch.parallel import batch
+
+    if card == "real" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    if card == "emulated":
+        real_k2 = batch.encode_batch_device
+        monkeypatch.setattr(encoder, "upload_frame",
+                            lambda rgb, device: torch.from_numpy(rgb))
+        monkeypatch.setattr(batch, "encode_batch_device",
+                            lambda *a, device, **kw: real_k2(*a, device="cpu",
+                                                             **kw))
+    read = reader(ROOT, "upload_ms_per_frame.encode")
+    img = synthetic_image(96, 64, 4)
+    got = {}
+    for device in ("cuda", "cpu"):
+        encode_rgb_device(img, device=device)  # builds and warms up
+        before = profiling.recorded_calls()
+        with torch.profiler.profile(activities=CPU):
+            data = encode_rgb_device(img, device=device)
+        (call,) = _new_calls(before)
+        spans = profiling.recorded_spans([call.id])
+        root = next(s for s in spans if s.parent == 0)
+        kids = sorted((s for s in spans if s.parent == root.id),
+                      key=lambda s: s.start_ns)
+        window = (call.to_unix_ns(root.start_ns) * 1e-9,
+                  call.to_unix_ns(root.end_ns) * 1e-9)
+        ctx = types.SimpleNamespace(entry="encode_rgb_device",
+                                    trace=types.SimpleNamespace(
+                                        window=window,
+                                        calls=[types.SimpleNamespace(frames=1)]))
+        got[device] = data, kids, read(ctx)
+    (data, kids, ms), (want, cpu_kids, cpu_ms) = got["cuda"], got["cpu"]
+    assert data == want
+    assert [s.name for s in kids] == ["encode.prepare", "encode.upload",
+                                      "encode.k2", "encode.pack"]
+    assert kids[1].counts == {"bytes": img.nbytes}
+    # the reader's times pass through the anchor's Unix seconds
+    assert ms == pytest.approx(1e-6 * (kids[1].end_ns - kids[1].start_ns),
+                               abs=1e-3)
+    assert ms > 0
+    assert "encode.upload" not in [s.name for s in cpu_kids]
+    assert cpu_ms is None
+
+
 def test_calls_map_onto_the_profilers_clock():
     """Each root, mapped through its call's anchor, lies within 1 ms of
     the record_function the call mirrors on the profiler's timeline."""
