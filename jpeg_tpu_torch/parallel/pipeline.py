@@ -33,10 +33,21 @@ out of :meth:`BatchedCorpusDecoder.decode_all`.
 K1's input is staged (:mod:`jpeg_tpu_torch.parallel.staging`): each
 frame's planes go, as soon as they exist, into the next slot of a reused
 buffer of their geometry, page-locked where the CUDA runtime allows, and a
-bucket's slots are K1's input as they stand, with no gather. K1's output
-is pooled the same way: a bucket's cropped RGB comes down by DMA into a
-reused page-locked buffer of its geometry, whose views are the results,
-reused once the caller no longer holds them.
+run of a bucket's slots is K1's input as it stands, with no gather. K1's
+output is pooled the same way: a bucket's cropped RGB comes down by DMA
+into a reused page-locked buffer of its geometry, whose views are the
+results, reused once the caller no longer holds them.
+
+On a CUDA device without a mesh the pixel stage streams behind the
+entropy phase: while the workers and the device thread decode, the caller
+launches K1, the crop and the download on every run of at least
+``device_batch`` consecutive filled slots (of the slots the geometry's
+buffer held at the call's start), and the rest of each bucket runs once
+the entropy phase ends. A call's first frames of a geometry (no buffer
+yet), frames past the buffer's capacity, a mesh (which takes multiples of
+its size) and the CPU (where K1's twin would take the workers' cores)
+keep that order: entropy first, then one launch a bucket. The results are
+the same bytes either way.
 
 Per-image isolation: an image that cannot be decoded becomes an error
 record and never stops the corpus. A build, launch or CUDA failure (any
@@ -52,7 +63,7 @@ import itertools
 import os
 import threading
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 
 import numpy as np
 import torch
@@ -178,12 +189,13 @@ class BatchedCorpusDecoder:
     K1 input went up from page-locked staging, ``pinned_rgb_frames`` whose
     RGB came down into a page-locked result buffer (every K1 frame on the
     card, except while the caller still holds two earlier calls' results of
-    the geometry), ``entropy_launches`` (K3) and
-    ``pixel_launches`` (K1 or K1a, one a data shard under a mesh) made
-    through this decoder. ``routes`` holds, per item of the last
-    :meth:`decode_all`, the route its entropy took: ``"host"``,
-    ``"device"`` (K3) or ``"fallback"`` (claimed by the device thread, then
-    decoded on the host).
+    the geometry), ``streamed_frames`` whose K1 launched before their
+    call's entropy phase ended (see the module's docstring),
+    ``entropy_launches`` (K3) and ``pixel_launches`` (K1 or K1a, one a
+    data shard under a mesh) made through this decoder. ``routes`` holds,
+    per item of the last :meth:`decode_all`, the route its entropy took:
+    ``"host"``, ``"device"`` (K3) or ``"fallback"`` (claimed by the device
+    thread, then decoded on the host).
 
     Under a ``torch.profiler`` session a call records its spans
     (:mod:`jpeg_tpu_torch.utils.profiling`); each frame's ``decode.parse``
@@ -216,6 +228,7 @@ class BatchedCorpusDecoder:
         self.staged_frames = 0
         self.pinned_frames = 0
         self.pinned_rgb_frames = 0
+        self.streamed_frames = 0
         self.entropy_launches = 0
         self.pixel_launches = 0
         self.routes: list[str] = []
@@ -241,6 +254,13 @@ class BatchedCorpusDecoder:
             self._pool = ThreadPoolExecutor(max_workers=self.workers)
             self._dev_pool = ThreadPoolExecutor(max_workers=1)
         return self._pool, self._dev_pool
+
+    def _store(self, parsed, i, rec) -> None:
+        """``parsed[i] = rec``; where the frame's planes lie in their
+        staging slot, the slot is marked filled, under ``i``."""
+        parsed[i] = rec
+        if rec[5] is not None and rec[3] is None:
+            self._staging.fill(rec[2], rec[5], i)
 
     def _entropy_one(self, item, route: str = "host"):
         """Host route -> (name, plan, geom, planes, error, slot). The
@@ -289,7 +309,21 @@ class BatchedCorpusDecoder:
                 and len(plan.segments) >= 2
                 and sum(s.mcu_count for s in plan.segments) == plan.n_mcus)
 
+    def _host_parse(self, items):
+        """The host-only entropy phase, started: (parsed, its futures)."""
+        pool, _ = self._pools()
+        parsed: list = [None] * len(items)
+        self.routes = ["host"] * len(items)
+        frame = profiling.current()
+
+        def one(i):
+            with profiling.adopt(frame):
+                self._store(parsed, i, self._entropy_one(items[i]))
+
+        return parsed, [pool.submit(one, i) for i in range(len(items))]
+
     def _hybrid_parse(self, items):
+        """The hybrid entropy phase, started: (parsed, its futures)."""
         parsed: list = [None] * len(items)
         routes = self.routes = ["host"] * len(items)
         work = deque(range(len(items)))
@@ -312,14 +346,14 @@ class BatchedCorpusDecoder:
         def host_worker():
             with profiling.adopt(frame):
                 while (i := pop_front()) is not None:
-                    parsed[i] = self._entropy_one(items[i])
+                    self._store(parsed, i, self._entropy_one(items[i]))
 
         def to_host(idxs):
             with lk:
                 self.fallback_frames += len(idxs)
             for i in idxs:
                 routes[i] = "fallback"
-                parsed[i] = self._entropy_one(items[i], "fallback")
+                self._store(parsed, i, self._entropy_one(items[i], "fallback"))
 
         def finalize(pend):
             idxs, plans, coeffs, err = pend
@@ -345,8 +379,9 @@ class BatchedCorpusDecoder:
                         for v, x in zip(views, planes):
                             torch.from_numpy(v).copy_(x)
                         planes = None
-                parsed[i] = (_name(items[i]), p, geom, planes, None, slot)
                 routes[i] = "device"
+                self._store(parsed, i,
+                            (_name(items[i]), p, geom, planes, None, slot))
                 with lk:
                     self.device_frames += 1
 
@@ -411,10 +446,7 @@ class BatchedCorpusDecoder:
         # small call before that thread is scheduled.
         dev_fut = dev_pool.submit(device_side, pop_back_batch())
         host_futs = [pool.submit(host_worker) for _ in range(self.workers)]
-        for f in host_futs:
-            f.result()
-        dev_fut.result()
-        return parsed
+        return parsed, [*host_futs, dev_fut]
 
     def decode_all(self, items) -> list[DecodeResult]:
         """Decode a list of paths or byte strings; order preserved. Under
@@ -429,7 +461,7 @@ class BatchedCorpusDecoder:
                 if root:
                     before = (self.entropy_launches, self.pixel_launches,
                               self.staged_frames, self.pinned_frames,
-                              self.pinned_rgb_frames)
+                              self.pinned_rgb_frames, self.streamed_frames)
                 results, parsed, buckets = self._decode_all(items)
                 if root:
                     for route in ("host", "device", "fallback"):
@@ -446,27 +478,20 @@ class BatchedCorpusDecoder:
                     root.add("pinned_frames", self.pinned_frames - before[3])
                     root.add("pinned_rgb_frames",
                              self.pinned_rgb_frames - before[4])
+                    root.add("streamed_frames",
+                             self.streamed_frames - before[5])
             return results
         finally:
             self._busy.release()
 
     def _decode_all(self, items):
         self._staging.begin()
+        results: list = [None] * len(items)
         with span("decode.entropy"):
-            if self.hybrid_device:
-                parsed = self._hybrid_parse(items)
-            else:
-                pool, _ = self._pools()
-                frame = profiling.current()
+            parsed, futs = (self._hybrid_parse(items) if self.hybrid_device
+                            else self._host_parse(items))
+            streams = self._stream(parsed, futs, results)
 
-                def one(item):
-                    with profiling.adopt(frame):
-                        return self._entropy_one(item)
-
-                parsed = list(pool.map(one, items))
-                self.routes = ["host"] * len(items)
-
-        results: list = [None] * len(parsed)
         buckets: dict = {}
         for i, (name, plan, geom, planes, err, _) in enumerate(parsed):
             if err is not None:
@@ -480,11 +505,21 @@ class BatchedCorpusDecoder:
             # Frames whose slot the buffer lacked hold their own planes.
             unslotted = {parsed[i][5]: parsed[i][3] for i in idxs
                          if parsed[i][3] is not None}
+            self.staged_frames += len(idxs) - len(unslotted)
+            ran = sum(results[i] is not None for i in idxs)  # slots 0..ran-1
+            out = streams.get(geom)
+            if out is None or len(out[0]) < len(idxs):
+                held, out = out, self._staging.results(geom, len(idxs))
+                if ran:  # the call outgrew the array its runs came down to
+                    out[0][:ran] = held[0][:ran]
+                    for i in idxs[:ran]:
+                        results[i] = DecodeResult(parsed[i][0],
+                                                  out[0][parsed[i][5]])
+            idxs = idxs[ran:]
             # A mesh takes a multiple of its size (the JAX package's rule);
             # the rest of the bucket is decoded unsharded.
             spill_from = (len(idxs) - len(idxs) % self.mesh.size
                           if self.mesh else len(idxs))
-            out = self._staging.results(geom, len(idxs))
             for chunk, mesh in ((idxs[:spill_from], self.mesh),
                                 (idxs[spill_from:], None)):
                 if chunk:
@@ -492,9 +527,46 @@ class BatchedCorpusDecoder:
                         sp.add("frames", len(chunk))
                         self._pixel_stage(parsed, results, geom, chunk, mesh,
                                           unslotted, out)
-            self.staged_frames += len(idxs) - len(unslotted)
         self._staging.end(buckets)
         return results, parsed, buckets
+
+    def _streams(self) -> bool:
+        """Whether the pixel stage streams behind the entropy phase: on a
+        CUDA device without a mesh."""
+        return self.mesh is None and self.device.type == "cuda"
+
+    def _stream(self, parsed, futs, results) -> dict:
+        """Wait for the entropy phase's futures. Where the decoder streams,
+        meanwhile run the pixel stage on each run of filled staging slots
+        that :meth:`Staging.wait_runs` hands out, into the geometry's result
+        array (taken at its first run, one row a slot of its buffer).
+        Returns those arrays by geometry."""
+        streams: dict = {}
+        try:
+            if self._streams():
+                for f in futs:
+                    f.add_done_callback(self._staging.wake)
+
+                def done():
+                    return all(f.done() for f in futs)
+
+                while runs := self._staging.wait_runs(self.device_batch,
+                                                      done):
+                    for geom, idxs in runs:
+                        out = streams.get(geom)
+                        if out is None:
+                            out = streams[geom] = self._staging.results(
+                                geom, self._staging.buffers[geom].capacity)
+                        with span("decode.pixel") as sp:
+                            sp.add("frames", len(idxs))
+                            self._pixel_stage(parsed, results, geom, idxs,
+                                              None, None, out)
+                        self.streamed_frames += len(idxs)
+        finally:
+            wait(futs)
+        for f in futs:
+            f.result()
+        return streams
 
     def _pixel_stage(self, parsed, results, geom, idxs, mesh, unslotted,
                      out) -> None:
@@ -502,9 +574,13 @@ class BatchedCorpusDecoder:
         slots), on ``mesh`` or unsharded: the slots go up as K1's input, and
         the cropped RGB comes down into the same rows of the bucket's result
         array (``out``: the array and whether it is page-locked) before this
-        returns."""
+        returns. A run streamed during the entropy phase (``unslotted``
+        None) reads the buffer as it stands; the rest of a bucket runs once
+        every slot is filled, in the buffer grown to the call's frames."""
         with span("decode.stack") as sp:
-            buf, copied = self._staging.bucket(geom, unslotted)
+            buf, copied = ((self._staging.buffers[geom], 0)
+                           if unslotted is None
+                           else self._staging.bucket(geom, unslotted))
             lo = parsed[idxs[0]][5]
             bp = [p[lo : lo + len(idxs)] for p in buf.planes]
             bq = np.stack([plan_quant_patterns(parsed[i][1], geom)
@@ -527,9 +603,16 @@ class BatchedCorpusDecoder:
             array, pinned = out
             rgb = array[lo : lo + len(idxs)]
             # On the card PyTorch makes the crop contiguous there, then one
-            # DMA into the rows, on the stream that made planar, waited for.
+            # DMA into the rows, on the stream that made planar. The wait is
+            # a blocking-sync event: the caller sleeps in it, where a stream
+            # synchronise would spin a core the entropy workers need.
             torch.from_numpy(rgb).copy_(
-                planar[:, :, : geom.height, : geom.width].permute(0, 2, 3, 1))
+                planar[:, :, : geom.height, : geom.width].permute(0, 2, 3, 1),
+                non_blocking=True)
+            if planar.is_cuda:
+                landed = torch.cuda.Event(blocking=True)
+                landed.record(torch.cuda.current_stream(planar.device))
+                landed.synchronize()
             sp.add("bytes", rgb.nbytes)
             sp.add("pinned_bytes", rgb.nbytes if pinned else 0)
         if pinned:

@@ -5,9 +5,16 @@ staged one slot per frame, and the RGB it returns, one buffer per geometry.
 frame's int16 coefficient planes into the next free slot of its geometry's
 buffer as soon as they exist (a host worker copies them out of the
 runtime's thread scratch, the device thread copies K3's relayouted planes
-down from the card). A bucket's slots ``0..n-1`` are then K1's input as
-they stand: nothing is gathered, and the buffer's pages were touched once,
-not once a call.
+down from the card), and marks the slot filled once the copy returns
+(:meth:`Staging.fill`). Slots are taken in the order frames finish and
+never left empty, so the filled slots from 0 form a prefix that only
+grows: a run of consecutive filled slots is K1's input as it stands,
+while the workers fill the slots after it. Nothing is gathered, and the
+buffer's pages were touched once, not once a call. The caller waits on
+:meth:`Staging.wait_runs` for such runs during the entropy phase (the
+slots the buffer held at the call's start), and takes the rest of each
+bucket, ``0..n-1`` less what ran, once every slot is filled
+(:meth:`Staging.bucket`).
 
 A buffer is page-locked by registering its exact allocation with the CUDA
 runtime (``cudaHostRegister``; a caching pinned allocation would round
@@ -128,17 +135,21 @@ class Staging:
         self.buffers: dict = {}  # geometry -> _Buffer
         self.rgb: dict = {}      # geometry -> [_Results], at most RESULT_BUFFERS
         self._taken: dict = {}   # geometry -> slots taken in this call
+        self._filled: dict = {}  # geometry -> {slot: frame}, not yet in a run
+        self._ran: dict = {}     # geometry -> slots handed out in runs
         self._lock = threading.Lock()
+        self._changed = threading.Condition(self._lock)
 
     def begin(self) -> None:
-        """Start a call: no slot taken."""
-        self._taken = {}
+        """Start a call: no slot taken, filled or run."""
+        self._taken, self._filled, self._ran = {}, {}, {}
 
     def take(self, geom) -> tuple[int, list | None]:
         """The next free slot of ``geom`` in this call, with its
         per-component [rows, stride] views; the views are None where the
         buffer has no such slot yet. Any thread; take a slot only for planes
-        that exist, so that a bucket's slots have no holes."""
+        that exist, so that a bucket's slots have no holes, and
+        :meth:`fill` it once they are copied into the views."""
         with self._lock:
             slot = self._taken.get(geom, 0)
             self._taken[geom] = slot + 1
@@ -147,13 +158,51 @@ class Staging:
             return slot, None
         return slot, [p[slot] for p in buf.planes]
 
+    def fill(self, geom, slot: int, frame) -> None:
+        """Mark ``geom``'s ``slot`` filled with the planes of ``frame`` (the
+        caller's name for it, handed back by :meth:`wait_runs`). Any thread,
+        after the copy into the slot's views has returned."""
+        with self._changed:
+            self._filled.setdefault(geom, {})[slot] = frame
+            self._changed.notify_all()
+
+    def wake(self, *_) -> None:
+        """Wake :meth:`wait_runs` to test its ``done`` again (a future's
+        done callback)."""
+        with self._changed:
+            self._changed.notify_all()
+
+    def wait_runs(self, least: int, done) -> list | None:
+        """Block until some geometry has at least ``least`` consecutive
+        filled slots after the last run handed out, and hand out every such
+        run whole: ``[(geom, frames in slot order)]``, its first slot the
+        geometry's first not yet run. None, at once, when ``done()`` holds
+        (tested under the lock; whatever makes it true calls :meth:`wake`).
+        The caller's thread."""
+        with self._changed:
+            while not done():
+                runs = []
+                for geom, filled in self._filled.items():
+                    lo = hi = self._ran.get(geom, 0)
+                    while hi in filled:
+                        hi += 1
+                    if hi - lo >= least:
+                        runs.append((geom, [filled.pop(s)
+                                            for s in range(lo, hi)]))
+                        self._ran[geom] = hi
+                if runs:
+                    return runs
+                self._changed.wait()
+            return None
+
     def bucket(self, geom, unslotted: dict) -> tuple[_Buffer, int]:
         """``geom``'s buffer with a slot for every frame of this call, and
         the bytes copied to make it. The caller's thread, once every slot
-        is filled. Where the call took more slots than the buffer has, a
-        buffer of the call's size replaces it: the old slots are copied
-        over, and so are ``unslotted`` (slot -> planes: the frames whose
-        slot the old buffer lacked)."""
+        is filled (runs handed out by :meth:`wait_runs` read the buffer as
+        it stands before then). Where the call took more slots than the
+        buffer has, a buffer of the call's size replaces it: the old slots
+        are copied over, and so are ``unslotted`` (slot -> planes: the
+        frames whose slot the old buffer lacked)."""
         n = self._taken.get(geom, 0)
         old = self.buffers.get(geom)
         if old is not None and old.capacity >= n:

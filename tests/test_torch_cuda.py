@@ -299,15 +299,16 @@ def test_corpus_results_come_down_page_locked_on_card(cuda, hybrid):
     page-locked result buffer: ``pinned_rgb_frames`` counts every frame,
     ``decode.crop_d2h``'s ``pinned_bytes`` are all its ``bytes``, the
     profiler's trace names the downloads ``Memcpy DtoH (Device ->
-    Pinned)`` (on the host route the only DtoH copies of the call), and
-    the results equal the CPU's."""
+    Pinned)``, one a K1 launch (on the host route the only DtoH copies of
+    the call; a warm call may stream runs, so it launches once a bucket
+    or more), and the results equal the CPU's."""
     from jpeg_tpu_torch.utils import profiling
 
     items = [_read(SMALL[0])] * 12 + [_read(SMALL[2])] * 3  # two geometries
     dec = BatchedCorpusDecoder(workers=2, hybrid_device=hybrid,
                                device_batch=2, device=cuda)
     dec.decode_all(items)  # builds the kernels and the buffers
-    before = dec.pinned_rgb_frames
+    before, launches = dec.pinned_rgb_frames, dec.pixel_launches
     calls = {c.id for c in profiling.recorded_calls()}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -317,16 +318,16 @@ def test_corpus_results_come_down_page_locked_on_card(cuda, hybrid):
     (call,) = [c for c in profiling.recorded_calls() if c.id not in calls]
     crops = [s.counts for s in profiling.recorded_spans([call.id])
              if s.name == "decode.crop_d2h"]
-    assert len(crops) == 2
+    assert len(crops) == dec.pixel_launches - launches >= 2
     assert (sum(c["pinned_bytes"] for c in crops)
             == sum(c["bytes"] for c in crops)
             == sum(r.rgb.nbytes for r in got))
     d2h = [e.name() for e in prof.profiler.kineto_results.events()
            if e.device_type() == torch.autograd.DeviceType.CUDA
            and e.name().startswith("Memcpy DtoH")]
-    assert d2h.count("Memcpy DtoH (Device -> Pinned)") >= 2
+    assert d2h.count("Memcpy DtoH (Device -> Pinned)") >= len(crops)
     if not hybrid:
-        assert d2h == ["Memcpy DtoH (Device -> Pinned)"] * 2, d2h
+        assert d2h == ["Memcpy DtoH (Device -> Pinned)"] * len(crops), d2h
     for data, r in zip(items, got):
         np.testing.assert_array_equal(
             r.rgb, decode_bytes(data, path="fast", device="cpu"))
